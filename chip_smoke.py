@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
 1. build: compile the CUDA kernels of csrc/ with nvcc (in parallel) and
-   print ptxas's registers, spills and shared memory per kernel.
+   print ptxas's registers, spills and shared memory per kernel; build
+   the NDJSON serializer (native/emit.cpp) with g++ and print its time.
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, bit for bit, at edge shapes (ragged row counts; widths 32, 128
    and 256; every mode x fold x word-boundary combination; 1 and 8
@@ -37,9 +38,25 @@ Phases, each fatal on failure:
    is zeroed right before this phase, and each kernel of the main path
    (scan, gated scan, count, value reduction) must move; the planner
    launches no standalone probe.  The runner's staged bytes are logged.
+   Each row query (`phrase`, `prefix`, `substring`, `bloom`) also
+   answers as a user pulls it: its full NDJSON export (`run_query` with
+   an `ndjson_block` sink, no limit), whose bytes must equal the host
+   executor's rows serialized by json.dumps, and /select/logsql/query
+   (`handle_query`) at its default limit of 1000, whose chunks must
+   equal the same handler's with no runner (the host executor), which
+   must run exactly one device part (the walk stops) and which, given
+   no runner at all, must answer the same through the storage's own
+   runner on the card (as must each stats query's handler); `phrase`
+   also answers with `| fields _time, lvl, dur | limit 5 | offset 2`.  Each stats query
+   answers /select/logsql/stats_query (`handle_stats_query` at a fixed
+   `time`), equal to the handler with no runner and with the query's
+   launches a part.  No result block may take the per-row emit
+   (`EMIT_COUNTERS["py_blocks"]` stays 0).
 4. report: per-query p50 over warm runs without and with the result
-   rows built, rows scanned per second, the device-busy time of one more
-   warm run under the profiler, each kernel held against its plain
+   rows built (dict rows), of the NDJSON export (`ndjson_p50_s`, with
+   its bytes and rows per second) and of the answers
+   (`api_query_p50_s`, `api_stats_p50_s`), rows scanned per second,
+   the device-busy time of one more warm run under the profiler, each kernel held against its plain
    version again at the main-path shapes and timed beside its bound
    (the bytes and operations this input needs) and a PyTorch yardstick
    (the gated scan on `quota` beside the four launches it replaces; the
@@ -54,7 +71,8 @@ Phases, each fatal on failure:
    the gated scan behind gates of 64, 1,000 and 1,100 blocks with 6 and
    30 probes a block (`gate_sweep`), each held against its plain version
    and timed beside its bound; the card's name and power limit, then a
-   JSON line of kernel figures and a last JSON line with the device.
+   JSON line of kernel figures and each query's answer figures
+   (`answers`) and a last JSON line with the device.
 
 Every time says where it came from: the profiler's device time, or CUDA
 events around back-to-back calls (which also count the host launch path)
@@ -78,6 +96,13 @@ ROOT = Path(__file__).resolve().parent
 ROWS = 4_000_000              # main-path rows, ingested with 4 flushes
 WARM_RUNS = 5                 # timed warm runs per query, no rows built
 WARM_COLLECT_RUNS = 3         # timed warm runs per query, rows built
+WARM_NDJSON_RUNS = 3          # timed warm runs of a row query's export
+FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
+# per-query figures of the last-but-one line beside the kernels
+ANSWER_KEYS = ("query", "rows_out", "host_s", "device_p50_s",
+               "device_collect_p50_s", "ndjson_p50_s", "ndjson_bytes",
+               "ndjson_rows_per_s", "api_query_p50_s", "api_fields_p50_s",
+               "api_stats_p50_s")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak
 
@@ -1094,6 +1119,120 @@ def queries(start: int) -> list:
     ]
 
 
+def launch_counts(wrappers, parts) -> dict:
+    """Every wrapper's launch count and the runner's part counters."""
+    out = {w.__name__: w.launches for w in wrappers}
+    out.update(parts)
+    return out
+
+
+def check_launches(what: str, wrappers, parts, before: dict,
+                   kernels: dict, want_parts: int | None = None) -> int:
+    """Fail unless the run since `before` ran its parts on the card
+    (exactly `want_parts` when given) and launched each kernel its
+    listed times a part and no other; returns the device parts."""
+    dev_parts = parts["device_parts"] - before["device_parts"]
+    host = parts["host_parts"] - before["host_parts"]
+    if host or dev_parts < 1 or want_parts not in (None, dev_parts):
+        fail(f"{what}: {dev_parts} parts on the card, {host} on the host"
+             + ("" if want_parts is None else f", want {want_parts}"))
+    for w in wrappers:
+        n = w.launches - before[w.__name__]
+        if n != kernels.get(w.__name__, 0) * dev_parts:
+            fail(f"{what}: {w.__name__} launched {n} times for "
+                 f"{dev_parts} device parts")
+    return dev_parts
+
+
+def ndjson_lines(rows: list) -> bytes:
+    """The NDJSON of dict rows: a json.dumps line a row."""
+    return "".join(json.dumps(r, ensure_ascii=False, separators=(",", ":"))
+                   + "\n" for r in rows).encode("utf-8")
+
+
+def row_answers(storage, tenants, name: str, q: str, want: list, runner,
+                kernels: dict, wrappers, timed) -> dict:
+    """A row query's answers: the full NDJSON export (held against the
+    host executor's rows serialized) and /select/logsql/query at its
+    default limit (held against the same handler with no runner, one
+    device part); `phrase` also answers FIELDS_CASE."""
+    from victorialogs_tpu_torch.engine.emit import ndjson_block
+    from victorialogs_tpu_torch.engine.searcher import run_query
+    from victorialogs_tpu_torch.server.vlselect import handle_query
+    parts = runner.stats_counters
+
+    def export() -> list:
+        chunks = []
+        run_query(storage, tenants, q,
+                  lambda br: chunks.append(ndjson_block(br)), runner=runner)
+        return chunks
+
+    got = b"".join(export())
+    if got != ndjson_lines(want):
+        fail(f"query {name}: the NDJSON export differs from the host "
+             f"executor's rows serialized")
+    p50 = timed(export, WARM_NDJSON_RUNS)
+    out = {"ndjson_p50_s": p50, "ndjson_bytes": len(got),
+           "ndjson_rows_per_s": len(want) / p50}
+    cases = [("api_query", q)]
+    if name == "phrase":
+        cases.append(("api_fields", q + FIELDS_CASE))
+    for label, text in cases:
+        args = {"query": text}
+        want_chunks = handle_query(storage, args, {}, runner=None)
+        if label == "api_query":
+            check_default_runner(f"{label} {name}", storage, want_chunks,
+                                 lambda: handle_query(storage, args, {}))
+        before = launch_counts(wrappers, parts)
+        chunks = handle_query(storage, args, {}, runner=runner)
+        check_launches(f"{label} {name}", wrappers, parts, before, kernels,
+                       want_parts=1)
+        if chunks != want_chunks:
+            fail(f"{label} {name}: the answer differs from the handler's "
+                 f"with no runner")
+        out[f"{label}_p50_s"] = timed(
+            lambda: handle_query(storage, args, {}, runner=runner),
+            WARM_RUNS)
+        out[f"{label}_bytes"] = sum(map(len, chunks))
+    return out
+
+
+def check_default_runner(what: str, storage, want, answer) -> None:
+    """A handler given no runner answers `want` through the storage's own
+    runner on the card, all of its parts there."""
+    from victorialogs_tpu_torch.server.vlselect import card_runner
+    counters = card_runner(storage).stats_counters
+    before = counters["device_parts"]
+    if answer() != want:
+        fail(f"{what}: the answer with the default runner differs from "
+             f"the handler's with no runner")
+    if card_runner(storage).device.type != "cuda" or \
+            counters["device_parts"] == before or counters["host_parts"]:
+        fail(f"{what}: the default runner did not answer on the card "
+             f"({counters})")
+
+
+def stats_answers(storage, name: str, q: str, now: str, runner,
+                  kernels: dict, wrappers, timed) -> dict:
+    """/select/logsql/stats_query of a stats query at `now`, held against
+    the same handler with no runner, with the query's launches a part."""
+    from victorialogs_tpu_torch.server.vlselect import handle_stats_query
+    parts = runner.stats_counters
+    args = {"query": q, "time": now}
+    want = handle_stats_query(storage, args, {}, runner=None)
+    check_default_runner(f"api_stats {name}", storage, want,
+                         lambda: handle_stats_query(storage, args, {}))
+    before = launch_counts(wrappers, parts)
+    got = handle_stats_query(storage, args, {}, runner=runner)
+    check_launches(f"api_stats {name}", wrappers, parts, before, kernels)
+    if got != want or not got["data"]["result"]:
+        fail(f"api_stats {name}: the answer differs from the handler's "
+             f"with no runner")
+    return {"api_stats_p50_s": timed(
+        lambda: handle_stats_query(storage, args, {}, runner=runner),
+        WARM_RUNS), "api_stats_samples": len(got["data"]["result"])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-main", action="store_true",
@@ -1111,6 +1250,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
+    from victorialogs_tpu_torch import native
+    from victorialogs_tpu_torch.engine import emit
     from victorialogs_tpu_torch.engine.searcher import (run_query,
                                                         run_query_collect)
     from victorialogs_tpu_torch.gpu import build
@@ -1125,6 +1266,7 @@ def main() -> int:
                                                       stats_count_seg_plain,
                                                       stats_values,
                                                       stats_values_plain)
+    from victorialogs_tpu_torch.logsql.duration import format_rfc3339
     from victorialogs_tpu_torch.storage.filterbank import bloom_plane
     from victorialogs_tpu_torch.storage.log_rows import TenantID
     from victorialogs_tpu_torch.utils.hashing import hash_tokens
@@ -1139,6 +1281,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {name}.cu {line.strip()}")
+    secs = native.build()
+    log(f"build: {secs:.1f} s for the NDJSON serializer native/emit.cpp "
+        f"({native.CXX} {' '.join(native.CXX_FLAGS)})")
 
     # phase 2
     rng = np.random.default_rng(7)
@@ -1183,13 +1328,14 @@ def main() -> int:
 
     for w in wrappers:
         w.launches = 0
+    emit.EMIT_COUNTERS["py_blocks"] = 0
+    now = format_rfc3339(start + 13 * 3600 * 10**9)
     report = []
     for name, q, kernels in queries(start):
         t0 = time.perf_counter()
         want = run_query_collect(storage, tenants, q)
         t_host = time.perf_counter() - t0
-        before = {w.__name__: w.launches for w in wrappers}
-        before.update(parts)
+        before = launch_counts(wrappers, parts)
         t0 = time.perf_counter()
         got = run_query_collect(storage, tenants, q, runner=runner)
         torch.cuda.synchronize()
@@ -1199,16 +1345,9 @@ def main() -> int:
                  f"executor ({len(got)} vs {len(want)} rows)")
         if name == "count_all" and got != [{"count(*)": str(nrows)}]:
             fail(f"count_all returned {got}, want {nrows}")
-        dev_parts = parts["device_parts"] - before["device_parts"]
+        dev_parts = check_launches(f"query {name}", wrappers, parts, before,
+                                   kernels)
         scanned = parts["device_rows"] - before["device_rows"]
-        if parts["host_parts"] != before["host_parts"] or dev_parts < 1:
-            fail(f"query {name}: {dev_parts} parts on the card, "
-                 f"{parts['host_parts'] - before['host_parts']} on the host")
-        for w in wrappers:
-            n = w.launches - before[w.__name__]
-            if n != kernels.get(w.__name__, 0) * dev_parts:
-                fail(f"query {name}: {w.__name__} launched {n} times for "
-                     f"{dev_parts} device parts")
 
         def warm_run(q=q):
             run_query(storage, tenants, q, lambda br: None, runner=runner)
@@ -1218,14 +1357,14 @@ def main() -> int:
             storage, tenants, q, runner=runner), WARM_COLLECT_RUNS)
         wall, busy = busy_share(warm_run)
         idle = None if busy is None else 1 - busy / wall
-        report.append({"query": q, "rows_out": len(got),
-                       "device_parts": dev_parts, "host_s": t_host,
-                       "device_cold_s": t_cold, "device_p50_s": p50,
-                       "device_collect_p50_s": collect_p50,
-                       "rows_scanned": scanned,
-                       "rows_scanned_per_s": scanned / p50,
-                       "profiled_wall_s": wall, "device_busy_s": busy,
-                       "device_idle_share": idle})
+        row = {"query": q, "rows_out": len(got),
+               "device_parts": dev_parts, "host_s": t_host,
+               "device_cold_s": t_cold, "device_p50_s": p50,
+               "device_collect_p50_s": collect_p50,
+               "rows_scanned": scanned,
+               "rows_scanned_per_s": scanned / p50,
+               "profiled_wall_s": wall, "device_busy_s": busy,
+               "device_idle_share": idle}
         log(f"query {name}: {len(got)} rows from {dev_parts} device parts, "
             f"host executor {t_host:.3f} s (rows built), device cold "
             f"{t_cold:.3f} s (rows built), warm p50 {p50:.4f} s without "
@@ -1233,6 +1372,25 @@ def main() -> int:
             f"{collect_p50:.4f} s with rows built; profiled warm run "
             f"{wall * 1e3:.2f} ms wall, device busy "
             f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}")
+        if "stats" in q:
+            ans = stats_answers(storage, name, q, now, runner, kernels,
+                                wrappers, timed)
+            log(f"answer {name}: stats_query p50 "
+                f"{ans['api_stats_p50_s']:.4f} s, "
+                f"{ans['api_stats_samples']} samples")
+        else:
+            ans = row_answers(storage, tenants, name, q, want, runner,
+                              kernels, wrappers, timed)
+            log(f"answer {name}: NDJSON export p50 "
+                f"{ans['ndjson_p50_s']:.4f} s for {ans['ndjson_bytes']} B, "
+                f"{ans['ndjson_rows_per_s']:,.0f} rows/s (dict rows p50 "
+                f"{collect_p50:.4f} s, host executor {t_host:.3f} s); query "
+                f"at limit 1000 p50 {ans['api_query_p50_s']:.4f} s, one "
+                f"device part" + (
+                    f"; with{FIELDS_CASE} p50 {ans['api_fields_p50_s']:.4f} "
+                    f"s" if "api_fields_p50_s" in ans else ""))
+        row.update(ans)
+        report.append(row)
     launches = {w.__name__: w.launches for w in wrappers}
     log(f"main-path launches: {launches}")
     for w in main_path:
@@ -1241,6 +1399,10 @@ def main() -> int:
     log(f"runner parts: {parts}")
     if parts["host_parts"]:
         fail(f"{parts['host_parts']} parts ran on the host")
+    log(f"emit: {emit.EMIT_COUNTERS}")
+    if emit.EMIT_COUNTERS["py_blocks"]:
+        fail(f"{emit.EMIT_COUNTERS['py_blocks']} result blocks took the "
+             f"per-row emit")
     log(f"runner staged bytes: {runner.cache.bytes()} "
         f"{runner.cache.bytes_by_kind()}")
 
@@ -1413,7 +1575,8 @@ def main() -> int:
         timeout=60)
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else "nvidia-smi: no output")
-    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"kernels": kern, "answers": [
+        {k: r[k] for k in ANSWER_KEYS if k in r} for r in report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

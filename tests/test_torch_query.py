@@ -335,7 +335,7 @@ def test_long_values_settle_on_host():
 @pytest.mark.parametrize("q", [
     "re(foo)", "x:>5", "foo | sort by (_time)", "foo | stats uniq_values(x)",
     "foo | stats by (_time:month) count()", '~"fo+"', "_stream_id:abc",
-    "foo | stats count() if (x)", "in(a, b)", "foo | limit 5",
+    "foo | stats count() if (x)", "in(a, b)", "foo | limit 5 | uniq by (x)",
 ])
 def test_outside_the_slice_raises(q):
     with pytest.raises(NotImplementedError):
@@ -358,6 +358,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((REPO / "victorialogs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    pkg = REPO / "victorialogs_tpu_torch"
+    for mod in ("native/__init__.py", "engine/emit.py",
+                "server/insertutil.py", "server/vlselect.py"):
+        assert pkg / mod in files, mod
     bad = [str(f) for f in files if _IMPORT_RE.search(f.read_text())]
     assert not bad, bad
     code = (
@@ -369,6 +373,13 @@ def test_port_never_imports_jax_or_the_jax_package():
         "'jax.') or m == 'victorialogs_tpu' or m.startswith("
         "'victorialogs_tpu.')]\n"
         "assert not bad, bad\n"
+        "from victorialogs_tpu_torch.native import emit_ndjson_native\n"
+        "import numpy as np\n"
+        "z = np.zeros(1, dtype=np.int64)\n"
+        "assert emit_ndjson_native([b'\"t\":'], [(3, z)], 1) == "
+        "b'{\"t\":\"0\"}\\n'\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libvlemit_' in maps and 'libvlnative' not in maps\n"
         "print('PORT_IMPORTS_CLEAN')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),

@@ -15,6 +15,13 @@ where `handled` blocks are already reduced in `partials` (one per
 nonempty cell: key parts, count, value stats, uniq values, quantile
 numbers), which become the functions' partial states and merge into
 the stats processor; the rest come back as bitmaps for the row path.
+
+The walk stops once the pipe chain reports itself done (a satisfied
+`limit`): it checks before each part's filter or stats program and
+before each block it writes, so a query answered from its first part
+runs no other.  Stored blocks enter the chain with the chain's needed
+fields (`compute_needed_fields`), so a `| fields` query decodes no
+other column.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from ..gpu.stats_device import build_partial_states
 from ..logsql.duration import format_rfc3339
 from ..logsql.filters import FilterAnd, FilterStream
 from ..logsql.parser import MAX_TS, MIN_TS, Query, parse_query
-from ..logsql.pipes import PipeStats, SinkProcessor
+from ..logsql.pipes import PipeStats, SinkProcessor, compute_needed_fields
 from ..storage.log_rows import TenantID
 from .block_result import BlockResult
 from .block_search import BlockSearch
@@ -49,14 +56,16 @@ def _stream_filters(f, out: list) -> list:
     return out
 
 
+def host_bitmap(f, bs) -> np.ndarray:
+    """Bool bitmap of the filter over one block, evaluated on the host."""
+    bm = np.ones(bs.nrows, dtype=bool)
+    f.apply_to_block(bs, bm)
+    return bm
+
+
 def host_eval(f, bss: dict) -> dict:
     """block_idx -> bool bitmap of the filter, evaluated on the host."""
-    out = {}
-    for bi, bs in bss.items():
-        bm = np.ones(bs.nrows, dtype=bool)
-        f.apply_to_block(bs, bm)
-        out[bi] = bm
-    return out
+    return {bi: host_bitmap(f, bs) for bi, bs in bss.items()}
 
 
 def absorb_stats_partials(head, ps, spec, partials) -> None:
@@ -70,27 +79,11 @@ def absorb_stats_partials(head, ps, spec, partials) -> None:
             spec, ps.funcs, cnt, field_stats, uniq_vals, quant_vals))
 
 
-def run_query(storage, tenants, q: Query | str, write_block,
-              timestamp: int | None = None, runner=None) -> None:
-    """Execute a LogsQL query; write_block(BlockResult) receives results."""
-    if isinstance(q, str):
-        q = parse_query(q, timestamp)
-    if isinstance(tenants, TenantID):
-        tenants = [tenants]
-    tenants = tuple(tenants)
+def _candidate_parts(storage, q: Query, tenants: tuple, min_ts: int,
+                     max_ts: int):
+    """(part, {block: BlockSearch}) of every part with candidate blocks
+    (time range, tenant, `_stream:{...}` filters), in walk order."""
     tenant_set = set(tenants)
-    min_ts, max_ts = q.get_time_range()
-    if min_ts != MIN_TS and max_ts != MAX_TS:
-        # rate() and rate_sum() divide by the time filter's seconds
-        for p in q.pipes:
-            if isinstance(p, PipeStats):
-                for fn in p.funcs:
-                    if hasattr(fn, "step_seconds"):
-                        fn.step_seconds = (max_ts - min_ts + 1) / 1e9
-    head = SinkProcessor(write_block)
-    for pipe in reversed(q.pipes):
-        head = pipe.make_processor(head)
-    spec = runner.stats_spec(q) if runner is not None else None
     sfs = _stream_filters(q.filter, [])
     for pt in storage.select_partitions(min_ts, max_ts):
         ctx = SearchContext(partition=pt, tenants=tenants)
@@ -110,23 +103,51 @@ def run_query(storage, tenants, q: Query | str, write_block,
                 if sid.tenant in tenant_set and (allowed is None
                                                  or sid in allowed):
                     bss[bi] = BlockSearch(part, bi, ctx)
-            if not bss:
+            if bss:
+                yield part, bss
+
+
+def run_query(storage, tenants, q: Query | str, write_block,
+              timestamp: int | None = None, runner=None) -> None:
+    """Execute a LogsQL query; write_block(BlockResult) receives results."""
+    if isinstance(q, str):
+        q = parse_query(q, timestamp)
+    if isinstance(tenants, TenantID):
+        tenants = [tenants]
+    tenants = tuple(tenants)
+    min_ts, max_ts = q.get_time_range()
+    if min_ts != MIN_TS and max_ts != MAX_TS:
+        # rate() and rate_sum() divide by the time filter's seconds
+        for p in q.pipes:
+            if isinstance(p, PipeStats):
+                for fn in p.funcs:
+                    if hasattr(fn, "step_seconds"):
+                        fn.step_seconds = (max_ts - min_ts + 1) / 1e9
+    head = SinkProcessor(write_block)
+    for pipe in reversed(q.pipes):
+        head = pipe.make_processor(head)
+    needed = compute_needed_fields(q.pipes)
+    spec = runner.stats_spec(q) if runner is not None else None
+    for part, bss in _candidate_parts(storage, q, tenants, min_ts, max_ts):
+        if head.is_done():
+            break
+        handled: set = set()
+        bms = None            # without a runner: block by block below
+        if spec is not None:
+            bms, handled, partials = runner.run_part_stats(
+                q.filter, part, bss, spec)
+            absorb_stats_partials(head, q.pipes[0], spec, partials)
+        elif runner is not None:
+            bms = runner.run_part(q.filter, part, bss)
+        for bi, bs in bss.items():
+            if bi in handled:
                 continue
-            handled: set = set()
-            if runner is None:
-                bms = host_eval(q.filter, bss)
-            elif spec is not None:
-                bms, handled, partials = runner.run_part_stats(
-                    q.filter, part, bss, spec)
-                absorb_stats_partials(head, q.pipes[0], spec, partials)
-            else:
-                bms = runner.run_part(q.filter, part, bss)
-            for bi, bs in bss.items():
-                if bi in handled:
-                    continue
-                bm = bms[bi]
-                if bm.any():
-                    head.write_block(BlockResult.from_block_search(bs, bm))
+            if head.is_done():
+                break
+            bm = host_bitmap(q.filter, bs) if bms is None else bms[bi]
+            if bm.any():
+                head.write_block(BlockResult.from_block_search(bs, bm,
+                                                               needed))
     head.flush()
 
 
@@ -138,3 +159,27 @@ def run_query_collect(storage, tenants, q: Query | str,
     run_query(storage, tenants, q, lambda br: rows.extend(br.rows()),
               timestamp=timestamp, runner=runner)
     return rows
+
+
+def run_query_collect_columns(storage, tenants, q: Query | str,
+                              timestamp: int | None = None,
+                              runner=None) -> tuple[dict, int]:
+    """Columnar twin of run_query_collect: (cols, nrows), cols an
+    insertion-ordered {name: [str, ...]} with every list nrows long
+    (a name absent from a block reads "" there)."""
+    blocks: list = []            # ({name: list}, nrows)
+    order: dict[str, None] = {}
+
+    def sink(br: BlockResult):
+        names = br.column_names()
+        blocks.append(({n: br.column(n) for n in names}, br.nrows))
+        for n in names:
+            order.setdefault(n, None)
+
+    run_query(storage, tenants, q, sink, timestamp=timestamp, runner=runner)
+    cols: dict[str, list] = {n: [] for n in order}
+    for bc, n in blocks:
+        for name, out in cols.items():
+            vals = bc.get(name)
+            out.extend(vals if vals is not None else [""] * n)
+    return cols, sum(n for _bc, n in blocks)

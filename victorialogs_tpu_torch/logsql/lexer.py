@@ -16,6 +16,12 @@ def _is_token_char(c: str) -> bool:
         (not c.isascii() and (c.isalpha() or c.isdigit() or c == "_"))
 
 
+def quote_token_if_needed(s: str) -> str:
+    if s and all(_is_token_char(c) or c == "." for c in s):
+        return s
+    return '"' + s.replace("\\", "\\\\").replace('"', '\\"') + '"'
+
+
 def unquote(raw: str) -> str:
     """Go-style strconv.Unquote for the three LogsQL quote kinds."""
     if len(raw) >= 2 and raw[0] == "`" and raw[-1] == "`":

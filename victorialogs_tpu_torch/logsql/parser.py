@@ -41,6 +41,14 @@ class Query:
             s += f" | {p.to_string()}"
         return s
 
+    def add_time_filter(self, start_ns: int, end_ns: int) -> None:
+        """AND `_time:[start_ns, end_ns]` (inclusive) into the filter."""
+        tf = FilterTime(min_ts=start_ns, max_ts=end_ns)
+        if isinstance(self.filter, FilterAnd):
+            self.filter.filters.insert(0, tf)
+        else:
+            self.filter = FilterAnd([tf, self.filter])
+
     def get_time_range(self) -> tuple[int, int]:
         """Overall [min_ts, max_ts] from the top-level AND-ed time
         filters."""

@@ -1,4 +1,5 @@
-"""LogsQL pipes of the slice: `| stats [by (...)] <funcs...>`.
+"""LogsQL pipes of the slice: `| stats [by (...)] <funcs...>`, then
+`limit`/`head`, `offset`/`skip` and `fields`/`keep` in any chain.
 
 The stats processor groups rows by plain fields, `_time:<duration>`
 buckets and numeric buckets (`by (dur:100 [offset 7])`), keeps one
@@ -7,11 +8,18 @@ emits one row per group in sorted key order.  Device runners bypass the
 row path and hand it per-group partial states (`absorb_partials`),
 which merge exactly like states updated from rows.
 
+`limit` passes its first N rows and then reports itself done
+(`Processor.is_done`), which stops the executor's part walk; `offset`
+drops the first N rows; `fields` projects each block to its names
+(a trailing `*` selects by prefix) without leaving the stored block,
+so the NDJSON emit keeps its typed columns.  `compute_needed_fields`
+tells the executor which fields the chain can read.
+
 Stats functions: count, count_empty, count_uniq, sum, sum_len, min,
 max, avg, median, quantile, rate and rate_sum.  Other LogsQL stats
-functions, per-function `if (...)` guards, calendar `_time` buckets and
-every other pipe raise NotImplementedError; an unknown function name
-raises ParseError.
+functions, per-function `if (...)` guards, calendar `_time` buckets, a
+`stats` pipe after another pipe and every other pipe raise
+NotImplementedError; an unknown function name raises ParseError.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 from ..engine.block_result import BlockResult
 from . import stats_funcs as sf
 from .duration import format_rfc3339_many, parse_duration
+from .lexer import quote_token_if_needed
 from .matchers import parse_number
 
 
@@ -40,6 +49,10 @@ class Processor:
 
     def flush(self) -> None:
         self.next_p.flush()
+
+    def is_done(self) -> bool:
+        """True once no further input can change the output."""
+        return self.next_p.is_done() if self.next_p else False
 
 
 class SinkProcessor(Processor):
@@ -101,6 +114,13 @@ class PipeStats:
 
     def __repr__(self):
         return f"<pipe {self.to_string()}>"
+
+    def input_fields(self, out_needed: set) -> set:
+        # stats replaces the rows: only its keys and inputs are read
+        out = {b.name for b in self.by}
+        for fn in self.funcs:
+            out |= set(fn.fields)
+        return out
 
     def make_processor(self, next_p: Processor) -> "StatsProcessor":
         return StatsProcessor(self, next_p)
@@ -225,6 +245,129 @@ class StatsProcessor(Processor):
         self.next_p.flush()
 
 
+# ---------------- fields / limit / offset ----------------
+
+def expand_field_patterns(patterns: list, names: list) -> list:
+    """Trailing-`*` patterns expanded against the block's names."""
+    out: dict[str, None] = {}
+    for p in patterns:
+        if p.endswith("*"):
+            for n in names:
+                if n.startswith(p[:-1]):
+                    out.setdefault(n, None)
+        else:
+            out.setdefault(p, None)
+    return list(out)
+
+
+class _FieldsProcessor(Processor):
+    def __init__(self, fields: list, next_p: Processor):
+        super().__init__(next_p)
+        self.fields = fields
+        self.wildcard = any(f.endswith("*") for f in fields)
+
+    def write_block(self, br):
+        use = expand_field_patterns(self.fields, br.column_names()) \
+            if self.wildcard else self.fields
+        self.next_p.write_block(br.restrict_fields(use))
+
+
+@dataclass(repr=False)
+class PipeFields:
+    fields: list
+
+    def to_string(self):
+        return "fields " + ", ".join(quote_token_if_needed(f)
+                                     for f in self.fields)
+
+    def input_fields(self, out_needed: set) -> set:
+        if any(f.endswith("*") for f in self.fields):
+            return {"*"}
+        return set(self.fields)
+
+    def make_processor(self, next_p: Processor) -> Processor:
+        return _FieldsProcessor(self.fields, next_p)
+
+
+def _head_rows(br: BlockResult, lo: int, hi: int) -> BlockResult:
+    """Rows [lo, hi) of the block."""
+    mask = np.zeros(br.nrows, dtype=bool)
+    mask[lo:hi] = True
+    return br.filter_rows(mask)
+
+
+class _LimitProcessor(Processor):
+    def __init__(self, limit: int, next_p: Processor):
+        super().__init__(next_p)
+        self.limit = limit
+        self.seen = 0
+
+    def write_block(self, br):
+        if self.seen >= self.limit:
+            return
+        take = min(br.nrows, self.limit - self.seen)
+        self.seen += take
+        if take < br.nrows:
+            br = _head_rows(br, 0, take)
+        self.next_p.write_block(br)
+
+    def is_done(self):
+        return self.seen >= self.limit or super().is_done()
+
+
+@dataclass(repr=False)
+class PipeLimit:
+    n: int
+
+    def to_string(self):
+        return f"limit {self.n}"
+
+    def input_fields(self, out_needed: set) -> set:
+        return out_needed
+
+    def make_processor(self, next_p: Processor) -> Processor:
+        return _LimitProcessor(self.n, next_p)
+
+
+class _OffsetProcessor(Processor):
+    def __init__(self, offset: int, next_p: Processor):
+        super().__init__(next_p)
+        self.offset = offset
+        self.skipped = 0
+
+    def write_block(self, br):
+        if self.skipped >= self.offset:
+            self.next_p.write_block(br)
+            return
+        skip = min(br.nrows, self.offset - self.skipped)
+        self.skipped += skip
+        if skip < br.nrows:
+            self.next_p.write_block(_head_rows(br, skip, br.nrows))
+
+
+@dataclass(repr=False)
+class PipeOffset:
+    n: int
+
+    def to_string(self):
+        return f"offset {self.n}"
+
+    def input_fields(self, out_needed: set) -> set:
+        return out_needed
+
+    def make_processor(self, next_p: Processor) -> Processor:
+        return _OffsetProcessor(self.n, next_p)
+
+
+def compute_needed_fields(pipes: list) -> set:
+    """The fields the chain can read from a stored block, back to front;
+    a set holding "*" means all."""
+    needed = {"*"}
+    for p in reversed(pipes):
+        needed = p.input_fields(needed)
+    return needed
+
+
 # ---------------- parsing ----------------
 
 def parse_pipes(lex) -> list:
@@ -232,18 +375,21 @@ def parse_pipes(lex) -> list:
     while True:
         name = lex.token.lower()
         if name == "stats":
+            if pipes:
+                raise NotImplementedError("a stats pipe after another pipe")
             lex.next_token()
             pipes.append(_parse_stats(lex))
         elif name == "count" and not pipes:
             lex.next_token()
             pipes.append(_parse_count_shorthand(lex))
+        elif name in _PIPE_PARSERS:
+            lex.next_token()
+            pipes.append(_PIPE_PARSERS[name](lex))
         else:
             raise NotImplementedError(f"pipe {lex.token!r} is not supported")
         if not lex.is_keyword("|"):
             break
         lex.next_token()
-    if len(pipes) > 1:
-        raise NotImplementedError("only a single stats pipe is supported")
     return pipes
 
 
@@ -291,6 +437,29 @@ def _parse_uint(lex, what: str) -> int:
         raise ParseError(f"invalid {what} {lex.token!r}")
     lex.next_token()
     return int(v)
+
+
+def _parse_field_list(lex) -> list:
+    fields = []
+    while True:
+        name = _parse_field_name(lex)
+        if lex.is_keyword("*") and not lex.is_skipped_space:
+            name += "*"          # prefix selection: `fields req_*`
+            lex.next_token()
+        fields.append(name)
+        if not lex.is_keyword(","):
+            return fields
+        lex.next_token()
+
+
+_PIPE_PARSERS = {
+    "fields": lambda lex: PipeFields(_parse_field_list(lex)),
+    "keep": lambda lex: PipeFields(_parse_field_list(lex)),
+    "limit": lambda lex: PipeLimit(_parse_uint(lex, "limit")),
+    "head": lambda lex: PipeLimit(_parse_uint(lex, "limit")),
+    "offset": lambda lex: PipeOffset(_parse_uint(lex, "offset")),
+    "skip": lambda lex: PipeOffset(_parse_uint(lex, "offset")),
+}
 
 
 def _quantile_ctor(args):

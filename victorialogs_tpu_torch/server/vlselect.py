@@ -1,0 +1,165 @@
+"""Query API handlers: `/select/logsql/query` and
+`/select/logsql/stats_query`, as functions of (storage, args, headers).
+
+`handle_query` answers NDJSON, one chunk a result block, each written
+by the columnar emit (engine/emit.py); the endpoint appends `| offset
+N` and `| limit N` (1000 unless `limit` says otherwise, 0 for none), so
+the part walk stops once the limit is met.  `handle_stats_query`
+answers a query ending in `stats` as a Prometheus instant vector at
+`time`.  Both take `start`/`end` (added as a time filter), `time` (the
+query's now) and the tenant's AccountID/ProjectID.
+
+Both run the query's filter and stats programs on the card: by default
+through the storage's own `TorchBatchRunner` (made on first use, kept
+while the storage lives, so its staged parts stay warm), which raises
+where CUDA is unavailable.  A caller passes its own runner (one with
+device="cpu" runs the kernels' plain versions), or `runner=None` for
+the host executor, which filters block by block with numpy.
+
+Not here yet: the HTTP server, tracing, the active-query registry and
+slow-query log, `timeout` deadlines, `extra_filters` /
+`extra_stream_filters` (answered with HTTPError(400) until the `in`
+filter is ported), and the hits, facets and tail endpoints.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+
+from ..engine.emit import ndjson_block
+from ..engine.searcher import run_query, run_query_collect_columns
+from ..gpu.batch import TorchBatchRunner
+from ..logsql.duration import parse_duration, ts_bounds
+from ..logsql.parser import MAX_TS, MIN_TS, ParseError, Query, parse_query
+from ..logsql.pipes import PipeLimit, PipeOffset, PipeStats
+from .insertutil import get_tenant_id, parse_timestamp
+
+
+CARD = object()          # the handlers' default runner: card_runner(storage)
+_card_runners: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def card_runner(storage) -> TorchBatchRunner:
+    """The storage's own runner on the card, made on first use."""
+    runner = _card_runners.get(storage)
+    if runner is None:
+        runner = _card_runners[storage] = TorchBatchRunner()
+    return runner
+
+
+class HTTPError(Exception):
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+def _parse_time_arg(v: str, default: int, end: bool = False) -> int:
+    if not v:
+        return default
+    if v == "now":
+        return time.time_ns()
+    d = parse_duration(v)
+    if d is not None:
+        return time.time_ns() - abs(d)
+    tb = ts_bounds(v)
+    if tb is not None:
+        return tb[1] if end else tb[0]
+    try:  # unix seconds / millis / nanos
+        iv = float(v)
+        return parse_timestamp(int(iv) if iv.is_integer() else iv)
+    except (ValueError, OverflowError):
+        raise HTTPError(400, f"cannot parse time arg {v!r}")
+
+
+def _int_arg(args, name, default=0) -> int:
+    v = args.get(name, "")
+    if not v:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        raise HTTPError(400, f"invalid {name} arg {v!r}")
+
+
+def parse_common_args(args, headers) -> tuple[Query, list]:
+    qs = args.get("query", "")
+    if not qs:
+        raise HTTPError(400, "missing query arg")
+    ts = _parse_time_arg(args.get("time", ""), time.time_ns(), end=True)
+    try:
+        q = parse_query(qs, timestamp=ts)
+    except (ParseError, ValueError) as e:
+        raise HTTPError(400, f"cannot parse query: {e}")
+    except NotImplementedError as e:
+        raise HTTPError(501, f"not supported by this build: {e}")
+    start = _parse_time_arg(args.get("start", ""), MIN_TS)
+    end = _parse_time_arg(args.get("end", ""), MAX_TS, end=True)
+    if start != MIN_TS or end != MAX_TS:
+        q.add_time_filter(start, end)
+    for extra_arg in ("extra_filters", "extra_stream_filters"):
+        if args.get(extra_arg, ""):
+            raise HTTPError(400, f"{extra_arg} is not supported yet: it "
+                                 f"needs the `in` filter")
+    return q, [get_tenant_id(headers, args)]
+
+
+def _query_pipes(q: Query, args) -> None:
+    """/select/logsql/query: offset and limit pushdown."""
+    limit = _int_arg(args, "limit", 1000)
+    offset = _int_arg(args, "offset", 0)
+    if offset:
+        q.pipes.append(PipeOffset(offset))
+    if limit > 0:
+        q.pipes.append(PipeLimit(limit))
+
+
+def handle_query(storage, args, headers, runner=CARD) -> list[bytes]:
+    """The NDJSON answer of /select/logsql/query: one chunk a non-empty
+    result block."""
+    q, tenants = parse_common_args(args, headers)
+    _query_pipes(q, args)
+    if runner is CARD:
+        runner = card_runner(storage)
+    chunks: list[bytes] = []
+
+    def sink(br):
+        data = ndjson_block(br)
+        if data:
+            chunks.append(data)
+
+    run_query(storage, tenants, q, sink, runner=runner)
+    return chunks
+
+
+def _require_stats_query(q: Query) -> PipeStats:
+    for p in reversed(q.pipes):
+        if isinstance(p, PipeStats):
+            return p
+    raise HTTPError(400, "query must end with a `stats` pipe")
+
+
+def handle_stats_query(storage, args, headers, runner=CARD) -> dict:
+    """The /select/logsql/stats_query answer: one sample a group and
+    function at `time`."""
+    q, tenants = parse_common_args(args, headers)
+    sp = _require_stats_query(q)
+    if runner is CARD:
+        runner = card_runner(storage)
+    ts = _parse_time_arg(args.get("time", ""), time.time_ns(), end=True)
+    cols, nrows = run_query_collect_columns(storage, tenants, q,
+                                            runner=runner)
+    by_names = [b.name for b in sp.by]
+    by_cols = [cols.get(n) or [""] * nrows for n in by_names]
+    fn_cols = [cols.get(fn.out_name) or [""] * nrows for fn in sp.funcs]
+    result = []
+    for i in range(nrows):
+        for fn, vc in zip(sp.funcs, fn_cols):
+            metric = {"__name__": fn.out_name}
+            for n, bc in zip(by_names, by_cols):
+                if bc[i] != "":
+                    metric[n] = bc[i]
+            result.append({"metric": metric, "value": [ts / 1e9, vc[i]]})
+    return {"status": "success",
+            "data": {"resultType": "vector", "result": result}}
