@@ -24,7 +24,13 @@ Phases, each fatal on failure:
    1 and 100,003 rows, and at its edges (`value_edge_cases`, at each of
    its three paths: no row masked in, every row in one cell, 80% of the
    rows in one cell, values 0 and 0xFFFFFFFF, one row, unaligned views,
-   nine columns).
+   nine columns); the ordered pair (`A.*B`) at its edges
+   (`pair_edge_cases`: A and B of 1-64 bytes, A == B, overlapping
+   patterns, B only before A, several occurrences, rows shorter than
+   both, of 0 bytes and at the staged width, newlines at the first and
+   last byte and inside A, widths 32-256, ragged row counts, bytes >=
+   0x80), both of its outputs; and the fold scan of an `i()` leaf with
+   and without its multibyte mask (`check_fold`).
 3. main path: ingest >= 4M generated rows through LogRows -> Storage
    with 4 flushes, then run the query list through
    run_query_collect(..., runner=TorchBatchRunner(device="cuda")) and
@@ -32,14 +38,18 @@ Phases, each fatal on failure:
    run each of its parts on the card (none on the host), launch each of
    its kernels the listed number of times per part (`queries`: e.g. the
    value query `num_bucket` the scan once and the value reduction once,
-   for both of its value columns)
+   for both of its value columns; the pair query `regex_pair` the pair
+   kernel once; `regex_verify` the scan once for its literal run
+   "quota ", its candidate rows settled by re.search on the host)
    and launch no other kernel (the bloom query `quota`: the gated scan
    alone, no standalone probe or scan).  Every kernel's launch counter
    is zeroed right before this phase, and each kernel of the main path
-   (scan, gated scan, count, value reduction) must move; the planner
-   launches no standalone probe.  The runner's staged bytes are logged.
-   Each row query (`phrase`, `prefix`, `substring`, `bloom`) also
-   answers as a user pulls it: its full NDJSON export (`run_query` with
+   (scan, gated scan, count, value reduction, pair) must move; the
+   planner launches no standalone probe.  `anycase` (`i(ERROR)`) must
+   return `phrase`'s rows.  The runner's staged bytes are logged.  Each
+   row query (`phrase`, `prefix`, `substring`, `bloom`, `regex_pair`,
+   `regex_verify`, `anycase`, `anycase_prefix`) also answers as a user
+   pulls it: its full NDJSON export (`run_query` with
    an `ndjson_block` sink, no limit), whose bytes must equal the host
    executor's rows serialized by json.dumps, and /select/logsql/query
    (`handle_query`) at its default limit of 1000, whose chunks must
@@ -52,8 +62,10 @@ Phases, each fatal on failure:
    `time`), equal to the handler with no runner and with the query's
    launches a part.  No result block may take the per-row emit
    (`EMIT_COUNTERS["py_blocks"]` stays 0).
-4. report: per-query p50 over warm runs without and with the result
-   rows built (dict rows), of the NDJSON export (`ndjson_p50_s`, with
+4. report: per-query time of the cold run (no rows built), p50 over
+   warm runs without the result rows built, the time of the one warm
+   run with them built (dict rows, the run held against the host
+   executor), p50 of the NDJSON export (`ndjson_p50_s`, with
    its bytes and rows per second) and of the answers
    (`api_query_p50_s`, `api_stats_p50_s`), rows scanned per second,
    the device-busy time of one more warm run under the profiler, each kernel held against its plain
@@ -61,7 +73,8 @@ Phases, each fatal on failure:
    (the bytes and operations this input needs) and a PyTorch yardstick
    (the gated scan on `quota` beside the four launches it replaces; the
    value reduction beside bincount, index_add_ and two scatter_reduce a
-   column over the rows masked in), the count also at the cells of
+   column over the rows masked in; none for the pair, timed on
+   `error.*timeout`), the count also at the cells of
    `uniq_all`, `time_uniq` and `quantile` and the value reduction at
    those of `value_stats` and `num_bucket` (`at_queries`), then the scan
    at row widths 128, 512 and 2048, the count at 4, 1000 and 8 x 1000
@@ -95,8 +108,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ROWS = 4_000_000              # main-path rows, ingested with 4 flushes
 WARM_RUNS = 5                 # timed warm runs per query, no rows built
-WARM_COLLECT_RUNS = 3         # timed warm runs per query, rows built
-WARM_NDJSON_RUNS = 3          # timed warm runs of a row query's export
+WARM_NDJSON_RUNS = 2          # timed warm runs of a row query's export
 FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
 # per-query figures of the last-but-one line beside the kernels
 ANSWER_KEYS = ("query", "rows_out", "host_s", "device_p50_s",
@@ -692,6 +704,168 @@ def check_value_edges(rng, dev, stats: dict) -> None:
     stats["value_edges"] = n
 
 
+# ---------------- phase 2: the ordered pair and the fold scan ----------
+
+PAIR_FILLER = b"xyz -.\xc3\xa9"   # filler bytes; pair patterns use others
+
+
+def pair_pattern(rng, n: int) -> bytes:
+    """n bytes over "ab" and the two-byte character U+20AC (bytes >=
+    0x80 that the filler never holds), whole characters only."""
+    import numpy as np
+    out = b""
+    while len(out) < n:
+        c = [b"a", b"b", b"\xe2\x82\xac"][int(rng.integers(0, 3))]
+        out += c if len(out) + len(c) <= n else b"a"
+    return out
+
+
+def pair_rows(rng, r: int, w: int, a: bytes, b: bytes):
+    """(mat, lens): r rows of width w over PAIR_FILLER, each with one of:
+    A then B, B only before A, several of each, A and B overlapping, A
+    alone, nothing; and a newline at the first byte, the last byte or
+    inside A's first occurrence, or none.  Lengths span 0..w (w: no
+    padding, w - 1: the widest staged row), among them rows shorter
+    than len(A) + len(B); 0xFF padding past each length."""
+    import numpy as np
+    filler = np.frombuffer(PAIR_FILLER, dtype=np.uint8)
+    mat = filler[rng.integers(0, filler.size, size=(r, w))]
+    lens = rng.integers(0, w + 1, size=r).astype(np.int32)
+    head = [0, w, w - 1, min(len(a) + len(b) - 1, w), len(a) + len(b)]
+    lens[:min(r, len(head))] = head[:min(r, len(head))]
+    pa = np.frombuffer(a, dtype=np.uint8)
+    pb = np.frombuffer(b, dtype=np.uint8)
+    for i in range(r):
+        n = int(lens[i])
+        row = mat[i]
+
+        def put(p, lo):
+            hi = n - p.size
+            if hi < lo:
+                return -1
+            o = int(rng.integers(lo, hi + 1))
+            row[o:o + p.size] = p
+            return o
+
+        kind = int(rng.integers(0, 6))
+        oa = -1
+        if kind == 0:
+            oa = put(pa, 0)
+            if oa >= 0:
+                put(pb, oa + pa.size)
+        elif kind == 1:
+            ob = put(pb, 0)
+            if ob >= 0:
+                oa = put(pa, ob + pb.size)
+        elif kind == 2:
+            for _ in range(3):
+                oa = put(pa, 0)
+                put(pb, 0)
+        elif kind == 3:
+            oa = put(pa, 0)
+            if oa >= 0 and oa + 1 + pb.size <= n:
+                row[oa + 1:oa + 1 + pb.size] = pb
+        elif kind == 4:
+            oa = put(pa, 0)
+        nl = int(rng.integers(0, 5))
+        if n and nl == 0:
+            row[0] = 0x0A
+        elif n and nl == 1:
+            row[n - 1] = 0x0A
+        elif nl == 2 and oa >= 0:
+            row[oa + pa.size // 2] = 0x0A
+        row[n:] = 0xFF
+    return mat, lens
+
+
+def pair_edge_cases(rng) -> list:
+    """(label, mat, lens, A, B) cases at the pair kernel's edges: A and B
+    of 1, 3, 4, 5, 63 and 64 bytes (32- and 64-bit automata), A == B,
+    overlapping patterns (`aa.*aa`, `aba.*bab`), widths 32, 128 and 256,
+    ragged row counts (1, 31, 257, 4099) and rows over the grid-stride
+    loop."""
+    cases = []
+    for la, lb, w in ((1, 1, 32), (3, 4, 32), (4, 5, 128), (5, 3, 128),
+                      (63, 64, 256), (64, 63, 256), (64, 64, 256),
+                      (1, 64, 128), (32, 33, 128), (33, 1, 128)):
+        a, b = pair_pattern(rng, la), pair_pattern(rng, lb)
+        cases.append((f"len{la}-{lb}-w{w}", *pair_rows(rng, 1031, w, a, b),
+                      a, b))
+    for a, b in ((b"ab", b"ab"), (b"aa", b"aa"), (b"aba", b"bab"),
+                 (b"\xe2\x82\xac", b"\xe2\x82\xac")):
+        for w in (32, 128):
+            cases.append((f"{a!r}-{b!r}-w{w}", *pair_rows(rng, 2049, w, a, b),
+                          a, b))
+    for r, w in ((1, 32), (31, 128), (257, 256), (4099, 32)):
+        a, b = pair_pattern(rng, 3), pair_pattern(rng, 2)
+        cases.append((f"r{r}-w{w}", *pair_rows(rng, r, w, a, b), a, b))
+    a, b = pair_pattern(rng, 5), pair_pattern(rng, 4)
+    cases.append(("grid-stride", *pair_rows(rng, GRID_STRIDE_ROWS // 8, 32,
+                                            a, b), a, b))
+    return cases
+
+
+def check_pair(rng, dev, stats: dict) -> None:
+    """The pair kernel against its plain version on every
+    `pair_edge_cases` case, both outputs bit for bit; the cases hold
+    definite and maybe rows."""
+    import torch
+    from victorialogs_tpu_torch.gpu import kernels as K
+    from victorialogs_tpu_torch.gpu.layout import to_lanes32
+    n = hits = maybes = 0
+    for label, mat, lens, a, b in pair_edge_cases(rng):
+        lanes = torch.from_numpy(to_lanes32(mat).view("<i4")).to(dev)
+        lt = torch.from_numpy(lens).to(dev)
+        got = K.match_pair(lanes, lt, a, b)
+        want = K.match_pair_plain(lanes, lt, a, b)
+        n += 1
+        if not (torch.equal(got[0], want[0]) and
+                torch.equal(got[1], want[1])):
+            fail(f"pair edge {label}")
+        hits += int(want[0].sum())
+        maybes += int(want[1].sum())
+    if not (hits and maybes):
+        fail(f"pair edge cases: {hits} definite and {maybes} maybe rows")
+    stats["pair_edges"] = n
+
+
+def check_fold(rng, dev, stats: dict) -> None:
+    """The fold scan of an `i()` leaf, a `scan` node evaluated as the
+    main path does, with and without the multibyte mask, against the
+    plain scan and the mask: definite = hit & ~multibyte, maybe =
+    multibyte."""
+    import numpy as np
+    import torch
+    from victorialogs_tpu_torch.gpu import kernels as K
+    from victorialogs_tpu_torch.gpu.fused import eval_node
+    from victorialogs_tpu_torch.gpu.layout import to_lanes32
+    n = 0
+    for r, w in ((1000, 32), (4097, 128), (777, 256)):
+        mat, lens = rand_rows(rng, r, w)
+        mb = np.array([(mat[i, :lens[i]] >= 0x80).any() for i in range(r)])
+        lanes = torch.from_numpy(to_lanes32(mat).view("<i4")).to(dev)
+        lt = torch.from_numpy(lens).to(dev)
+        mbt = torch.from_numpy(mb).to(dev)
+        for pat in (b"ab", b"a b", b"b_0", b"ab\xc3\xa9"):
+            for mode, st, et in ((0, True, True), (0, False, True),
+                                 (1, True, False), (2, False, False)):
+                hit = K.match_scan_plain(lanes, lt, pat, mode, st, et, True)
+                for with_mb in (False, True):
+                    args = [lanes, lt] + ([mbt] if with_mb else [])
+                    d, m = eval_node(("scan", 0, 1, -1, 2 if with_mb else -1,
+                                      pat, mode, st, et, True), args, r, dev)
+                    n += 1
+                    if with_mb:
+                        ok = torch.equal(d, hit & ~mbt) and \
+                            torch.equal(m, mbt)
+                    else:
+                        ok = torch.equal(d, hit) and m is None
+                    if not ok:
+                        fail(f"fold scan r={r} w={w} {pat!r} mode={mode} "
+                             f"multibyte={with_mb}")
+    stats["fold"] = n
+
+
 # ---------------- bounds: the work this run's data needs ----------------
 
 def decide_ends(lanes, lengths, pattern: bytes, mode: int,
@@ -736,6 +910,16 @@ def scan_work(lanes, lengths, pattern: bytes, mode: int, starts_tok: bool,
     end = decide_ends(lanes, lengths, pattern, mode, starts_tok, ends_tok,
                       fold)
     return sector_bytes(end) + 5 * end.numel(), int(end.sum())
+
+
+def pair_work(lanes, lengths) -> tuple[int, int]:
+    """(bytes, byte steps) the pair kernel needs on this input: every
+    byte of every row (B's last occurrence and a newline may come at
+    its end), fetched in 32-byte sectors holding one word of 8 rows, its
+    4-byte length and two 1-byte results; two automaton steps a byte."""
+    import torch
+    end = lengths.to(torch.int64).clamp(max=4 * lanes.shape[0])
+    return sector_bytes(end) + 6 * end.numel(), 2 * int(end.sum())
 
 
 def probe_counts(plane, idx, shift, nwords):
@@ -1093,9 +1277,12 @@ def queries(start: int) -> list:
     hour = 3600 * 10**9
     lo, hi = format_rfc3339(start + hour), format_rfc3339(start + 5 * hour)
     scan, count = "match_scan", "stats_count_seg"
-    values = "stats_values"
+    values, pair = "stats_values", "match_pair"
     return [
         ("phrase", "error", {scan: 1}),
+        # next to `phrase`, whose rows it must return, so they are freed
+        # before the other queries run
+        ("anycase", "i(ERROR)", {scan: 1}),
         ("prefix", "resp*", {scan: 1}),
         ("substring", '~"onnect"', {scan: 1}),
         ("time_stats", f"_time:[{lo}, {hi}) warn | stats by (_time:1h) "
@@ -1116,6 +1303,13 @@ def queries(start: int) -> list:
                      "median(status) p50", {count: 1}),
         ("num_bucket", "warn | stats by (dur:1000) count(), sum_len(_msg), "
                        "count_empty(user)", {scan: 1, values: 1}),
+        # BASELINE config 3 on one chip
+        ("regex_pair", '~"error.*timeout"', {pair: 1}),
+        # the literal run "quota " scanned, re.search on its rows
+        ("regex_verify", '~"quota (GET|POST)"', {scan: 1}),
+        ("anycase_prefix", "i(RESP*)", {scan: 1}),
+        ("regex_stats", '~"error.*timeout" | stats by (app) count()',
+         {pair: 1, count: 1}),
     ]
 
 
@@ -1286,6 +1480,7 @@ def main() -> int:
         f"({native.CXX} {' '.join(native.CXX_FLAGS)})")
 
     # phase 2
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(7)
     stats: dict = {}
     check_scan(rng, dev, stats)
@@ -1295,8 +1490,11 @@ def main() -> int:
     check_gated(rng, dev, stats)
     check_values(rng, dev, stats)
     check_value_edges(rng, dev, stats)
+    check_pair(rng, dev, stats)
+    check_fold(rng, dev, stats)
     torch.cuda.synchronize()
-    log(f"kernels vs plain (bit-identical): {stats}")
+    log(f"kernels vs plain (bit-identical): {stats} in "
+        f"{time.perf_counter() - t_phase:.1f} s")
     if args.skip_main:
         log(json.dumps({"sweep": sweep(rng, dev) + gate_sweep(rng, dev)}))
         return 0
@@ -1312,7 +1510,7 @@ def main() -> int:
     # the kernels of the main path, then the standalone probe, which the
     # planner never launches
     main_path = (K.match_scan, K.match_scan_gated, stats_count_seg,
-                 stats_values)
+                 stats_values, K.match_pair)
     wrappers = main_path + (plane_keep,)
     parts = runner.stats_counters
 
@@ -1331,45 +1529,58 @@ def main() -> int:
     emit.EMIT_COUNTERS["py_blocks"] = 0
     now = format_rfc3339(start + 13 * 3600 * 10**9)
     report = []
+    phrase_rows = None
+    t0_queries = time.perf_counter()
     for name, q, kernels in queries(start):
         t0 = time.perf_counter()
         want = run_query_collect(storage, tenants, q)
         t_host = time.perf_counter() - t0
+
+        def warm_run(q=q):
+            run_query(storage, tenants, q, lambda br: None, runner=runner)
+
+        # the cold run stages what the query reads; then one warm run
+        # builds the rows held against the host executor
         before = launch_counts(wrappers, parts)
+        t0 = time.perf_counter()
+        warm_run()
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        dev_parts = check_launches(f"query {name}", wrappers, parts, before,
+                                   kernels)
+        scanned = parts["device_rows"] - before["device_rows"]
         t0 = time.perf_counter()
         got = run_query_collect(storage, tenants, q, runner=runner)
         torch.cuda.synchronize()
-        t_cold = time.perf_counter() - t0
+        collect_s = time.perf_counter() - t0
         if got != want:
             fail(f"query {q!r}: device result differs from the host "
                  f"executor ({len(got)} vs {len(want)} rows)")
         if name == "count_all" and got != [{"count(*)": str(nrows)}]:
             fail(f"count_all returned {got}, want {nrows}")
-        dev_parts = check_launches(f"query {name}", wrappers, parts, before,
-                                   kernels)
-        scanned = parts["device_rows"] - before["device_rows"]
-
-        def warm_run(q=q):
-            run_query(storage, tenants, q, lambda br: None, runner=runner)
-
+        # the generated text is lower case ASCII: i(ERROR) is `error`
+        if name == "phrase":
+            phrase_rows = got
+        if name == "anycase":
+            if got != phrase_rows:
+                fail("anycase: i(ERROR) differs from the phrase error")
+            phrase_rows = None
         p50 = timed(warm_run, WARM_RUNS)
-        collect_p50 = timed(lambda: run_query_collect(
-            storage, tenants, q, runner=runner), WARM_COLLECT_RUNS)
         wall, busy = busy_share(warm_run)
         idle = None if busy is None else 1 - busy / wall
         row = {"query": q, "rows_out": len(got),
                "device_parts": dev_parts, "host_s": t_host,
                "device_cold_s": t_cold, "device_p50_s": p50,
-               "device_collect_p50_s": collect_p50,
+               "device_collect_p50_s": collect_s,
                "rows_scanned": scanned,
                "rows_scanned_per_s": scanned / p50,
                "profiled_wall_s": wall, "device_busy_s": busy,
                "device_idle_share": idle}
         log(f"query {name}: {len(got)} rows from {dev_parts} device parts, "
             f"host executor {t_host:.3f} s (rows built), device cold "
-            f"{t_cold:.3f} s (rows built), warm p50 {p50:.4f} s without "
-            f"rows built ({scanned / p50:,.0f} rows scanned/s), warm p50 "
-            f"{collect_p50:.4f} s with rows built; profiled warm run "
+            f"{t_cold:.3f} s (no rows built), warm p50 {p50:.4f} s without "
+            f"rows built ({scanned / p50:,.0f} rows scanned/s), warm "
+            f"{collect_s:.4f} s with rows built; profiled warm run "
             f"{wall * 1e3:.2f} ms wall, device busy "
             f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}")
         if "stats" in q:
@@ -1384,14 +1595,18 @@ def main() -> int:
             log(f"answer {name}: NDJSON export p50 "
                 f"{ans['ndjson_p50_s']:.4f} s for {ans['ndjson_bytes']} B, "
                 f"{ans['ndjson_rows_per_s']:,.0f} rows/s (dict rows p50 "
-                f"{collect_p50:.4f} s, host executor {t_host:.3f} s); query "
+                f"{collect_s:.4f} s, host executor {t_host:.3f} s); query "
                 f"at limit 1000 p50 {ans['api_query_p50_s']:.4f} s, one "
                 f"device part" + (
                     f"; with{FIELDS_CASE} p50 {ans['api_fields_p50_s']:.4f} "
                     f"s" if "api_fields_p50_s" in ans else ""))
         row.update(ans)
         report.append(row)
+        # a row query's ~1.4M result dicts, alive into the next query,
+        # would make the collector's full passes land in its timings
+        del want, got
     launches = {w.__name__: w.launches for w in wrappers}
+    log(f"queries: {time.perf_counter() - t0_queries:.1f} s")
     log(f"main-path launches: {launches}")
     for w in main_path:
         if w.launches == 0:
@@ -1407,6 +1622,7 @@ def main() -> int:
         f"{runner.cache.bytes_by_kind()}")
 
     # phase 4: kernels at the main-path shapes
+    t_phase = time.perf_counter()
     part = next(iter(storage.partitions.values())).parts[0]
     layout = runner.layout(part)
     ff = runner.stage_fused_field(part, "_msg", layout)
@@ -1554,6 +1770,20 @@ def main() -> int:
                                  "and its AND with match_scan_pallas")
     kern[-1]["rows"] = r
     kern[-1]["kept_rows"] = int(keep_rows_plain(gate, r).sum())
+
+    # the regexp `error.*timeout` as regex_pair runs it
+    pair_args = (ff.lanes, ff.lengths, b"error", b"timeout")
+    got_p = K.match_pair(*pair_args)
+    want_p = K.match_pair_plain(*pair_args)
+    add("match_pair", "match_pair_kernel",
+        "victorialogs_tpu_torch/csrc/scan.cu",
+        "victorialogs_tpu/tpu/kernels32.py:243", torch.stack(got_p),
+        torch.stack(want_p), lambda: K.match_pair(*pair_args),
+        lambda: K.match_pair_plain(*pair_args), None,
+        *pair_work(ff.lanes, ff.lengths))
+    kern[-1]["rows"] = r
+    kern[-1]["definite_rows"] = int(got_p[0].sum())
+    kern[-1]["maybe_rows"] = int(got_p[1].sum())
     for k in kern:
         log(f"kernel {k['name']}: {k['ms']} ms (plain {k['plain_ms']} ms, "
             f"bound {k['bound_ms']} ms by {k['bound_by']} from "
@@ -1562,10 +1792,14 @@ def main() -> int:
             f"launches" + (f"; the launches it replaces {k['replaced_ms']} ms"
                            if "replaced_ms" in k else ""))
     log(json.dumps({"queries": report}))
+    log(f"kernels at the main-path shapes: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     sw = sweep(rng, dev)
     next(k for k in kern if k["name"] == "stats_values")["at_cells"] = [
         row for row in sw if row["kernel"] == "stats_values"]
     log(json.dumps({"sweep": sw + gate_sweep(rng, dev)}))
+    log(f"sweeps: {time.perf_counter() - t_phase:.1f} s")
     runner.close()
     storage.close()
     log(f"total {time.perf_counter() - t_all:.1f} s")

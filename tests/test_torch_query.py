@@ -10,7 +10,8 @@ from
 - the JAX package's run_query_collect with no runner and with
   BatchRunner().
 
-The list is chip_smoke.py's plus and/or/not, field and exact filters.
+The list is chip_smoke.py's plus and/or/not, field and exact filters;
+the smoke's regexp and any-case queries have a list of their own.
 Also here: queries over parts rebuilt from exported JAX arrays, values
 longer than the staging width (settled on the host), the planner's
 bloom gate (a bloom leaf ANDed with a scan is one `gscan` node whose
@@ -123,13 +124,24 @@ def _queries(start: int) -> list:
     ]
 
 
+def _regex_queries() -> list:
+    """The smoke's regexp and any-case queries (BASELINE config 3)."""
+    return [
+        '~"error.*timeout"',
+        '~"quota (GET|POST)"',
+        "i(ERROR)",
+        "i(RESP*)",
+        '~"error.*timeout" | stats by (app) count()',
+    ]
+
+
 def test_query_list_covers_every_smoke_query():
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    mine = set(_queries(0))
+    mine = set(_queries(0) + _regex_queries())
     assert all(q in mine for _name, q, _kernels in smoke.queries(0))
 
 
@@ -149,6 +161,27 @@ def test_query_matches_jax(stores, qi):
         assert jax_run(jax_st, JT, q, runner=br) == want
     finally:
         br.close()
+
+
+@pytest.mark.parametrize("qi", range(5))
+def test_regex_query_matches_jax(stores, qi):
+    """The smoke's regexp and any-case queries: the JAX package's rows on
+    every part of the device path; `i(ERROR)` returns `error`'s rows
+    (the generated text is lower case ASCII)."""
+    start, port, jax_st = stores
+    q = _regex_queries()[qi]
+    want = jax_run(jax_st, JT, q)
+    assert want, q
+    assert run_query_collect(port, T, q) == want
+    runner = TorchBatchRunner(device="cpu")
+    assert run_query_collect(port, T, q, runner=runner) == want
+    assert runner.stats_counters["device_parts"] == 4
+    assert runner.stats_counters["host_parts"] == 0
+    # only the verify query leaves rows to the host
+    assert (runner.stats_counters["maybe_rows"] > 0) == ("GET" in q)
+    runner.close()
+    if q == "i(ERROR)":
+        assert want == jax_run(jax_st, JT, "error")
 
 
 def _recording_runner():
@@ -195,14 +228,14 @@ def _unfuse(node, args: list, bid):
     from victorialogs_tpu_torch.gpu.bloom_device import plane_keep
     kind = node[0]
     if kind == "gscan":
-        scan, (pi, nwi, ii, si) = node[1:9], node[9:13]
+        scan, (pi, nwi, ii, si) = node[1:10], node[10:14]
         keep = plane_keep(args[pi], args[ii], args[si], args[nwi])
         args.append(keep.index_select(0, bid))
         return ("and", (("maskleaf", len(args) - 1), ("scan", *scan)))
     if kind in ("and", "or"):
         return (kind, tuple(_unfuse(k, args, bid) for k in node[1]))
-    if kind == "not":
-        return ("not", _unfuse(node[1], args, bid))
+    if kind in ("not", "verify"):
+        return (kind, _unfuse(node[1], args, bid))
     return node
 
 
@@ -334,7 +367,7 @@ def test_long_values_settle_on_host():
 
 @pytest.mark.parametrize("q", [
     "re(foo)", "x:>5", "foo | sort by (_time)", "foo | stats uniq_values(x)",
-    "foo | stats by (_time:month) count()", '~"fo+"', "_stream_id:abc",
+    "foo | stats by (_time:month) count()", "seq(a, b)", "_stream_id:abc",
     "foo | stats count() if (x)", "in(a, b)", "foo | limit 5 | uniq by (x)",
 ])
 def test_outside_the_slice_raises(q):

@@ -72,6 +72,29 @@
 // ruled-out warp makes no loads and never diverges: whole blocks are
 // contiguous.  Rows whose value was truncated (`ovf`) are maybe rows and
 // are not scanned.
+//
+// The ordered pair (vl_match_pair) decides the regexp `A.*B` with
+// literal A and B (1-64 bytes each) per row.  It replaces the JAX
+// package's device function tpu/kernels32.py match_ordered_pair_t (not a
+// Pallas kernel; XLA fused it on the TPU), which no single PyTorch call
+// computes: a composition builds R x W window tensors.  ordered: A and B
+// occur inside the row's length and A's first occurrence ends at or
+// before the start of B's last; newline: the row holds 0x0A, which `.`
+// does not cross.  definite = ordered & ~newline, maybe = ordered &
+// newline (the host settles it with re.search).  Bound: bytes, every
+// byte of every row (no byte decides a row early: B's last occurrence
+// and a newline may come at the end), its 4-byte length and 2 bytes of
+// results.
+//
+// Design: the scan's thread a row, loads of kChunk lane words a row and
+// grid-stride loop, with two Shift-And automata stepped by one shared
+// load a byte from a 256-entry table holding both patterns' entries,
+// 32-bit states when both patterns fit 32 bytes, else 64-bit.  Nothing
+// branches on a byte: the last word's bytes past the row's length are
+// set to 0xFF, which no pattern holds, so they reset both automata; A's
+// first and B's last accepting byte are kept by selects; the newline
+// test is one SWAR zero-byte test a word.  The pair is not bloom-gated
+// (a later design may gate it like the scan).
 
 #include <climits>
 #include <cstdint>
@@ -348,6 +371,73 @@ gated_exact_kernel(const uint32_t* __restrict__ lanes,
   });
 }
 
+// ---------------- the ordered pair ----------------
+
+template <typename Word>
+struct PairEntry {
+  Word a, b;                 // the pattern prefixes of A, of B, a byte extends
+};
+
+template <typename Word>
+__global__ void __launch_bounds__(kThreads)
+match_pair_kernel(const uint32_t* __restrict__ lanes,
+                  const int32_t* __restrict__ lengths, int r, int nl,
+                  const __grid_constant__ Pattern pa, int la,
+                  const __grid_constant__ Pattern pb, int lb,
+                  bool* __restrict__ definite, bool* __restrict__ maybe) {
+  __shared__ PairEntry<Word> tab[256];
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
+    PairEntry<Word> e = {0, 0};
+    for (int j = 0; j < la; ++j)
+      if (pat_byte(pa.w, j) == (unsigned)c) e.a |= Word(1) << j;
+    for (int j = 0; j < lb; ++j)
+      if (pat_byte(pb.w, j) == (unsigned)c) e.b |= Word(1) << j;
+    tab[c] = e;
+  }
+  __syncthreads();
+  const Word hi_a = Word(1) << (la - 1);
+  const Word hi_b = Word(1) << (lb - 1);
+  const size_t rs = r;
+
+  for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < r;
+       row += gridDim.x * blockDim.x) {
+    const int len = min(lengths[row], 4 * nl);
+    const int nw = (len + 3) >> 2;
+    // the bytes of the last word past len, as the 0xFF padding
+    const uint32_t tail = (len & 3) ? 0xFFFFFFFFu << (8 * (len & 3)) : 0u;
+    Word da = 0, db = 0;
+    int end_a = -1;            // end of A's first occurrence
+    int start_b = -1;          // start of B's last occurrence
+    uint32_t newline = 0;      // nonzero once a word held 0x0A
+    for (int q0 = 0; q0 < nw; q0 += kChunk) {
+      uint32_t w[kChunk];
+      const uint32_t* p = lanes + (size_t)q0 * rs + row;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k, p += rs)
+        w[k] = q0 + k < nw ? __ldg(p) | (q0 + k == nw - 1 ? tail : 0u)
+                           : 0xFFFFFFFFu;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        const uint32_t x = w[k] ^ 0x0A0A0A0Au;   // a zero byte: a newline
+        newline |= (x - 0x01010101u) & ~x & 0x80808080u;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          // 0xFF is in no pattern: padding resets both automata
+          const PairEntry<Word> e = tab[__byte_perm(w[k], 0, 0x4440 | a)];
+          da = ((da << 1) | 1) & e.a;
+          db = ((db << 1) | 1) & e.b;
+          const int i = 4 * (q0 + k) + a;
+          if (end_a < 0 && (da & hi_a)) end_a = i + 1;
+          if (db & hi_b) start_b = i + 1 - lb;
+        }
+      }
+    }
+    const bool ordered = end_a >= 0 && start_b >= 0 && end_a <= start_b;
+    definite[row] = ordered && !newline;
+    maybe[row] = ordered && newline;
+  }
+}
+
 Pattern make_pattern(const void* pattern, int pat_len) {
   Pattern pat = {};
   const unsigned char* p = static_cast<const unsigned char*>(pattern);
@@ -438,5 +528,38 @@ extern "C" int vl_match_scan_gated(
   else
     gated_scan_kernel<5><<<blocks, kThreads, 0, st>>>(
         l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
+  return (int)cudaGetLastError();
+}
+
+// `A.*B` per row: definite[row] = ordered & ~newline and maybe[row] =
+// ordered & newline (see the note at the top).  nl lane words a row;
+// A and B of 1-64 bytes, none of them 0xFF.
+extern "C" int vl_match_pair(const void* lanes, const void* lengths, int r,
+                             int nl, const void* pat_a, int len_a,
+                             const void* pat_b, int len_b, void* definite,
+                             void* maybe, void* stream) {
+  if (len_a <= 0 || len_a > 64 || len_b <= 0 || len_b > 64 || nl < 0)
+    return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < len_a; ++j)
+    if (static_cast<const unsigned char*>(pat_a)[j] == 0xFF)
+      return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < len_b; ++j)
+    if (static_cast<const unsigned char*>(pat_b)[j] == 0xFF)
+      return (int)cudaErrorInvalidValue;
+  if (r == 0) return 0;
+  const Pattern pa = make_pattern(pat_a, len_a);
+  const Pattern pb = make_pattern(pat_b, len_b);
+  const int blocks = grid_blocks(r);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* l = static_cast<const uint32_t*>(lanes);
+  const int32_t* n = static_cast<const int32_t*>(lengths);
+  bool* d = static_cast<bool*>(definite);
+  bool* m = static_cast<bool*>(maybe);
+  if (len_a <= 32 && len_b <= 32)
+    match_pair_kernel<uint32_t><<<blocks, kThreads, 0, st>>>(
+        l, n, r, nl, pa, len_a, pb, len_b, d, m);
+  else
+    match_pair_kernel<unsigned long long><<<blocks, kThreads, 0, st>>>(
+        l, n, r, nl, pa, len_a, pb, len_b, d, m);
   return (int)cudaGetLastError();
 }

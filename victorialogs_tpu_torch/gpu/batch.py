@@ -31,11 +31,12 @@ import torch
 
 from ..device import resolve_device
 from ..engine.searcher import host_eval
+from ..storage.values_encoder import VT_DICT, VT_STRING
 from .bloom_device import block_starts, stage_bloom_plane
 from .fused import (_NoFuse, _Planner, eval_node, part_layout,
                     residue_partials, settle_maybe, stage_layout_column)
 from .kernels import combine_ids, packbits
-from .layout import StagingCache
+from .layout import StagingCache, rows_with_multibyte
 from .stats_device import (MAX_ABS_TIMES_ROWS, MAX_BUCKETS,
                            MAX_QUANTILE_RANGE, SYNTH_EMPTY, SYNTH_LEN,
                            StatsSpec, device_stats_spec)
@@ -57,6 +58,41 @@ class _Staged:
 
 
 _UNSTAGEABLE = _Staged(None, None, 4096)
+
+
+def multibyte_rows(part, field: str, layout) -> np.ndarray:
+    """bool[RLp]: the rows whose `field` value holds a byte >= 0x80, over
+    every block of the part in layout coordinates (string, dict and
+    const blocks, `_stream` and `_stream_id`; a numeric block's values
+    are ASCII)."""
+    virtual = field in ("_stream", "_stream_id")
+    mb = np.zeros(layout.nrows_padded, dtype=bool)
+
+    def high(v: str) -> bool:
+        return max(v.encode("utf-8", "replace"), default=0) >= 0x80
+
+    for bi in range(part.num_blocks):
+        start, n = layout.starts[bi], part.block_rows(bi)
+        if virtual:
+            v = part.block_tags(bi) if field == "_stream" else \
+                part.block_stream_id(bi).as_string()
+            mb[start:start + n] = high(v)
+            continue
+        meta = part.block_column_meta(bi, field)
+        if meta is None:
+            mb[start:start + n] = high(dict(part.block_consts(bi))
+                                       .get(field, ""))
+            continue
+        if meta["t"] == VT_STRING:
+            col = part.block_column(bi, field)
+            mb[start:start + n] = rows_with_multibyte(
+                col.arena, col.offsets, col.lengths)
+        elif meta["t"] == VT_DICT:
+            col = part.block_column(bi, field)
+            flags = np.array([high(v) for v in col.dict_values], dtype=bool)
+            if flags.any():
+                mb[start:start + n] = flags[col.ids]
+    return mb
 
 
 @dataclass
@@ -117,6 +153,16 @@ class TorchBatchRunner:
     def stage_bloom_plane(self, part, field: str, plb):
         return self._cached((part.uid, "bloom", field),
                             lambda: stage_bloom_plane(plb, self.device))
+
+    def stage_multibyte(self, part, field: str, layout):
+        """bool[RLp] rows of `field` holding a byte >= 0x80 (the maybe
+        rows of an any-case scan), or None when no row does."""
+        def build():
+            mb = multibyte_rows(part, field, layout)
+            if not mb.any():
+                return _Staged(None, None, 64)
+            return _Staged(self.put(mb), None, mb.nbytes)
+        return self._cached((part.uid, "multibyte", field), build).value
 
     def stage_block_starts(self, part, layout) -> torch.Tensor:
         """int32[B+1] block starts: the gated scan's row -> block map."""

@@ -10,9 +10,9 @@ so an edited kernel rebuilds and an unchanged one loads at once.
 `build_all()` starts one nvcc per source, all together, and waits for
 them; what nvcc printed for each source (ptxas's registers, spills and
 shared memory per kernel, from `-Xptxas -v`) is kept in `BUILD_LOGS`.
-A source may export several entry points (`scan.cu`: the scan and the
-bloom-gated scan; `count.cu`: the count and the value reduction);
-`kernel(name)` loads one by its name in `SIGNATURES`.
+A source may export several entry points (`scan.cu`: the scan, the
+bloom-gated scan and the ordered pair; `count.cu`: the count and the
+value reduction); `kernel(name)` loads one by its name in `SIGNATURES`.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ SIGNATURES = {
     "scan_gated": ("scan", "vl_match_scan_gated",
                    (_P, _P, _I, _P, _I, _I, _I, _I, _I,
                     _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P)),
+    "pair": ("scan", "vl_match_pair",
+             (_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P)),
     "count": ("count", "vl_count_seg", (_P, _P, _P, _I, _I, _I, _P, _P)),
     "values": ("count", "vl_stats_values",
                (_P, _I, _P, _P, _I, _I, _P, _I, _IP, _P)),

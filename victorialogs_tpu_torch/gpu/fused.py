@@ -3,10 +3,13 @@
 The host planner (`_Planner`) walks a query's filter tree against one
 part and emits a small program plus the device tensors it reads:
 
-- leaves become `scan` (kernel 1 over the part's staged column), `time`
-  (timestamp compare), `maskleaf` (a per-block-constant filter such as
-  `_stream:{...}` expanded to rows), `nonempty`/`empty` (length
-  compares) and `ovfmaybe`;
+- leaves become `scan` (kernel 1 over the part's staged column), `pair`
+  (the regexp `A.*B`: kernels.match_pair), `time` (timestamp compare),
+  `maskleaf` (a per-block-constant filter such as `_stream:{...}`
+  expanded to rows), `nonempty` (a length compare) and `ovfmaybe`; a
+  regexp that is neither one literal nor a pair becomes `verify` over
+  the AND of one substring scan per mandatory literal run: no row is
+  definite, the candidates are maybe rows;
 - a bloom-prunable scan whose required tokens rule out some (not all)
   candidate blocks becomes a `gscan` node: one launch that probes each
   block's packed bloom plane on the card and scans only the rows of the
@@ -16,9 +19,12 @@ part and emits a small program plus the device tensors it reads:
   settles with the filter's own predicate anyway;
 - constant subtrees fold away.
 
-`_eval_node` evaluates the program three-valued: every node yields
+`eval_node` evaluates the program three-valued: every node yields
 (definite, maybe) row masks.  `maybe` collects rows whose staged value
-was truncated (longer than the staged width): the host settles them
+was truncated (longer than the staged width), a pair's rows holding a
+newline, a verify leaf's candidates and, for an any-case scan, the rows
+holding a byte >= 0x80 (Unicode lowering can map non-ASCII onto ASCII,
+U+212A -> 'k', which the byte fold cannot see): the host settles them
 with the filter's own predicate, so results equal the host executor's.
 Filters the planner cannot express raise `_NoFuse` and the runner
 evaluates the part on the host.
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from ..logsql import filters as F
-from ..logsql.matchers import parse_number
+from ..logsql.matchers import is_word_char, parse_number
 from ..logsql.stats_funcs import format_number
 from ..storage.filterbank import bloom_keep_mask, bloom_plane
 from ..storage.values_encoder import VT_DICT, VT_STRING
@@ -151,26 +157,63 @@ def stage_layout_column(part, field: str, layout: StatsLayout,
 # ---------------- leaf plans ----------------
 
 @dataclass
+class ScanOp:
+    pattern: bytes
+    mode: int
+    starts_tok: bool = False
+    ends_tok: bool = False
+    match_nonempty: bool = False   # prefix "": any non-empty value
+    # ASCII case fold of the data (pattern pre-lowered); rows holding a
+    # byte >= 0x80 are maybe rows
+    fold: bool = False
+
+
+@dataclass
 class LeafPlan:
-    filter: object
+    filter: object                 # the Filter (host settling + pred)
     field: str
-    spec: tuple | None     # scan_spec(); None: match any non-empty value
+    ops: list                      # ScanOps
+    combine: str                   # 'and' | 'or'
     bloom_tokens: list
+    verify: bool = False           # the ops only prefilter: maybe rows
+    pair: tuple | None = None      # (A, B) of the regexp `A.*B`
 
 
 def device_plan(f) -> LeafPlan | None:
-    """One filter leaf as a device scan (its host arena scan's
-    spec); None => host-only leaf."""
+    """One filter leaf as device scan ops; None => host-only leaf."""
     if not isinstance(f, F._ValuePredFilter):
         return None
+
+    def ok(s: str) -> bool:
+        return s.isascii() and 0 < len(s) <= K.MAX_PATTERN_LEN
+
     fld = F.canonical_field(f.field)
-    if isinstance(f, F.FilterPrefix) and not f.prefix:
-        return LeafPlan(f, fld, None, [])
+    if isinstance(f, F.FilterPrefix) and not f.prefix or \
+            isinstance(f, F.FilterAnyCasePrefix) and not f._lower:
+        return LeafPlan(f, fld, [ScanOp(b"", 0, match_nonempty=True)],
+                        "and", [])
+    if isinstance(f, (F.FilterAnyCasePhrase, F.FilterAnyCasePrefix)):
+        low = f._lower
+        if not ok(low):
+            return None
+        phrase = isinstance(f, F.FilterAnyCasePhrase)
+        return LeafPlan(f, fld, [ScanOp(
+            low.encode(), K.MODE_PHRASE if phrase else K.MODE_PREFIX,
+            is_word_char(low[0]), phrase and is_word_char(low[-1]),
+            fold=True)], "and", [])
+    if isinstance(f, F.FilterRegexp):
+        if f._pair is not None and all(len(p) <= K.MAX_PATTERN_LEN
+                                       for p in f._pair):
+            return LeafPlan(f, fld, [], "and", f._tokens(), pair=f._pair)
+        literals = [t for t in f._substr_literals if ok(t)]
+        return LeafPlan(f, fld, [ScanOp(t.encode(), K.MODE_SUBSTRING)
+                                 for t in literals], "and", f._tokens(),
+                        verify=not (f._pure and literals == [f.pattern]))
     spec = f.scan_spec()
     if spec is None or not (spec[0].isascii()
                             and len(spec[0]) <= K.MAX_PATTERN_LEN):
         return None
-    return LeafPlan(f, fld, spec, f._tokens())
+    return LeafPlan(f, fld, [ScanOp(*spec)], "and", f._tokens())
 
 
 # ---------------- the planner ----------------
@@ -258,6 +301,8 @@ class _Planner:
         plan = device_plan(f)
         if plan is None:
             raise _NoFuse(type(f).__name__)
+        if plan.verify and not plan.ops:
+            raise _NoFuse("regexp without a literal run")
         if plan.field == "_time":
             raise _NoFuse("_time-as-string")
         keep = None
@@ -268,19 +313,46 @@ class _Planner:
             if not keep.any():
                 return ("false",)
         ff, ri, li, oi = self.field_slot(plan.field)
-        if plan.spec is None:
-            return ("nonempty", li)
-        if len(plan.spec[0]) >= ff.width:
-            return self._ovf_only(oi)
-        if oi >= 0:
+        if plan.pair is not None:
+            # not bloom-gated: the kernel decides every row exactly
+            a, b = plan.pair
+            if max(len(a), len(b)) >= ff.width:
+                return self._ovf_only(oi)
             self.has_maybe = True
-        node = ("scan", ri, li, oi, *plan.spec, False)
+            return ("pair", ri, li, oi, a, b)
+        mi = -1
+        if any(op.fold for op in plan.ops):
+            mb = self.runner.stage_multibyte(self.part, plan.field,
+                                             self.layout)
+            if mb is not None:
+                mi = self.arg(mb)
+                self.has_maybe = True
         gate = None if keep is None or keep.all() else \
             self._bloom_gate(plan.field, hashes)
-        if gate is None:
-            return node
-        starts = self.runner.stage_block_starts(self.part, self.layout)
-        return ("gscan", *node[1:], *gate, self.arg(starts))
+        kids = []
+        for op in plan.ops:
+            if op.match_nonempty:
+                kids.append(("nonempty", li))
+                continue
+            if len(op.pattern) >= ff.width:
+                kids.append(self._ovf_only(oi))
+                continue
+            if oi >= 0:
+                self.has_maybe = True
+            node = ("scan", ri, li, oi, mi if op.fold else -1, op.pattern,
+                    op.mode, op.starts_tok, op.ends_tok, op.fold)
+            if gate is not None:
+                # one gated scan rules the leaf's blocks out for all
+                starts = self.runner.stage_block_starts(self.part,
+                                                        self.layout)
+                node = ("gscan", *node[1:], *gate, self.arg(starts))
+                gate = None
+            kids.append(node)
+        res = _combine(plan.combine, kids)
+        if not plan.verify or res == ("false",):
+            return res
+        self.has_maybe = True
+        return ("verify", res)
 
     def _bloom_gate(self, field: str, hashes):
         """Arg slots (plane, nwords, idx, shift) of the leaf's probe of
@@ -335,17 +407,36 @@ def eval_node(node, args, rlp: int, device):
         ts = args[node[1]]
         return (ts >= node[2]) & (ts <= node[3]), None
     if kind == "scan":
-        _, ri, li, oi, pat, mode, st, et, fold = node
-        m = K.match_scan(args[ri], args[li], pat, mode, st, et, fold)
-        if oi < 0:
-            return m, None
-        may = args[oi]
-        return m & ~may, may
+        _, ri, li, oi, mi, pat, mode, st, et, fold = node
+        d = K.match_scan(args[ri], args[li], pat, mode, st, et, fold)
+        may = None
+        for i in (oi, mi):
+            if i >= 0:
+                may = args[i] if may is None else may | args[i]
+        if may is None:
+            return d, None
+        return d & ~may, may
     if kind == "gscan":
-        _, ri, li, oi, pat, mode, st, et, fold, pi, nwi, ii, si, sti = node
+        (_, ri, li, oi, mi, pat, mode, st, et, fold, pi, nwi, ii, si,
+         sti) = node
         gate = BloomGate(args[pi], args[nwi], args[ii], args[si], args[sti])
-        return K.match_scan_gated(args[ri], args[li], pat, mode, st, et,
-                                  fold, gate, args[oi] if oi >= 0 else None)
+        d, may = K.match_scan_gated(args[ri], args[li], pat, mode, st, et,
+                                    fold, gate,
+                                    args[oi] if oi >= 0 else None)
+        if mi < 0:
+            return d, may
+        mb = args[mi]
+        return d & ~mb, mb if may is None else may | mb
+    if kind == "pair":
+        _, ri, li, oi, a, b = node
+        d, may = K.match_pair(args[ri], args[li], a, b)
+        if oi < 0:
+            return d, may
+        ov = args[oi]
+        return d & ~ov, may | ov
+    if kind == "verify":
+        d, m = eval_node(node[1], args, rlp, device)
+        return torch.zeros_like(d), d if m is None else d | m
     if kind == "not":
         d, m = eval_node(node[1], args, rlp, device)
         if m is None:

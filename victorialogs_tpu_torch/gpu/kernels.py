@@ -16,6 +16,12 @@ without being read.  It replaces the probe
 (bloom_device.plane_keep_pallas), the gather of its keep-mask to rows
 and the AND with the scan that the TPU program runs for a bloom leaf.
 
+`match_pair` decides the regexp `A.*B` (literal A and B) per row:
+(definite, maybe) where A's first occurrence ends at or before the
+start of B's last, maybe for rows holding a newline (csrc/scan.cu
+`vl_match_pair`; plain version `match_pair_plain`).  It replaces the
+JAX package's device function kernels32.match_ordered_pair_t.
+
 Also here: `combine_ids` (row-major combined bucket ids) and
 `packbits`/`unpackbits` pinned to numpy's bit order (first element in
 the most significant bit).  torch.uint32 lacks shifts and arithmetic,
@@ -183,6 +189,66 @@ def match_scan_gated(lanes: torch.Tensor, lengths: torch.Tensor,
 
 
 match_scan_gated.launches = 0
+
+
+def match_pair_plain(lanes: torch.Tensor, lengths: torch.Tensor,
+                     pat_a: bytes, pat_b: bytes):
+    """Plain PyTorch `A.*B`: the windows of A and of B inside each row's
+    length, A's first against B's last, and a newline test over the
+    row's bytes; see `match_pair`."""
+    nl, r = lanes.shape
+    w = 4 * nl
+    dev = lanes.device
+    lens = lengths.to(torch.int64).clamp(max=w)
+    none = torch.zeros(r, dtype=torch.bool, device=dev)
+    if max(len(pat_a), len(pat_b)) > w:
+        return none, none.clone()
+
+    def hits(pat: bytes) -> torch.Tensor:
+        acc = match_windows_plain(lanes, pat, MODE_SUBSTRING, False, False)
+        s = torch.arange(acc.shape[1], device=dev)
+        return acc & (s[None, :] <= (lens - len(pat))[:, None])
+
+    ha, hb = hits(pat_a), hits(pat_b)
+    first_a = ha.to(torch.uint8).argmax(dim=1)
+    last_b = hb.shape[1] - 1 - hb.flip(1).to(torch.uint8).argmax(dim=1)
+    ordered = ha.any(dim=1) & hb.any(dim=1) & \
+        (first_a + len(pat_a) <= last_b)
+    cols = torch.arange(w, device=dev)
+    newline = ((lanes_to_bytes(lanes) == 0x0A) &
+               (cols[None, :] < lens[:, None])).any(dim=1)
+    return ordered & ~newline, ordered & newline
+
+
+def match_pair(lanes: torch.Tensor, lengths: torch.Tensor, pat_a: bytes,
+               pat_b: bytes):
+    """(definite, maybe) bool[R] of the regexp `A.*B` over a lane-major
+    staged column: ordered = A and B occur inside the row's length and
+    A's first occurrence ends at or before the start of B's last;
+    definite = ordered without a newline (0x0A) in the row, maybe =
+    ordered with one.  lanes int32[W/4, R], lengths int32[R], A and B
+    1..MAX_PATTERN_LEN bytes without 0xFF (never a byte of UTF-8 text)."""
+    for p in (pat_a, pat_b):
+        if not 0 < len(p) <= MAX_PATTERN_LEN or 0xFF in p:
+            raise ValueError(f"pattern {p!r}: want 1..{MAX_PATTERN_LEN} "
+                             f"bytes without 0xFF")
+    if lanes.device.type == "cpu":
+        return match_pair_plain(lanes, lengths, pat_a, pat_b)
+    check_cuda(lanes, torch.int32, 2, "lanes")
+    nl, r = lanes.shape
+    check_cuda(lengths, torch.int32, 1, "lengths", (r,))
+    definite = torch.empty(r, dtype=torch.bool, device=lanes.device)
+    maybe = torch.empty_like(definite)
+    ba = ctypes.create_string_buffer(pat_a, len(pat_a))
+    bb = ctypes.create_string_buffer(pat_b, len(pat_b))
+    check(kernel("pair")(lanes.data_ptr(), lengths.data_ptr(), r, nl, ba,
+                         len(pat_a), bb, len(pat_b), definite.data_ptr(),
+                         maybe.data_ptr(), stream_ptr(lanes)), "pair")
+    match_pair.launches += 1
+    return definite, maybe
+
+
+match_pair.launches = 0
 
 
 def combine_ids(ids_tuple, strides) -> torch.Tensor:

@@ -9,9 +9,18 @@ evaluated once per dict entry or const.  The predicates in
 logsql/matchers.py are the semantics both paths and the device scan
 must reproduce.
 
-The slice supports phrase, prefix, exact, exact-prefix, literal-regexp
-(substring), `_time:` and `_stream:` leaves under and/or/not; the
-parser raises NotImplementedError for every other filter.
+Any-case leaves (`i(...)`) scan an ASCII-lowered copy of the arena and
+settle rows holding a byte >= 0x80 with their predicate, as Unicode
+lowering can differ from the byte fold there.  A regexp ANDs one
+arena scan per mandatory literal run (`regex_literal_runs`) and runs
+`re.search` on the survivors; `A.*B` with literal A and B is decided
+per row from A's first and B's last occurrence (`_pair_rows`, the
+device pair kernel's predicate), only rows holding a newline going to
+`re.search`.
+
+The slice supports phrase, prefix, exact, exact-prefix, any-case,
+regexp, `_time:` and `_stream:` leaves under and/or/not; the parser
+raises NotImplementedError for every other filter.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ from ..storage.bloom import bloom_contains_all
 from ..storage.values_encoder import VT_STRING
 from ..utils.hashing import cached_token_hashes
 from ..utils.tokenizer import is_word_char_table, tokenize_string
-from .matchers import is_word_char, match_phrase, match_prefix
+from .matchers import (is_word_char, match_any_case_phrase,
+                       match_any_case_prefix, match_phrase, match_prefix)
 
 # scan modes of the host arena scan and the device scan (gpu/kernels.py)
 MODE_PHRASE = 0        # substring with word boundaries on both sides
@@ -61,14 +71,17 @@ class Filter:
 
 
 def _arena_scan(col, pat: bytes, mode: int, starts_tok: bool,
-                ends_tok: bool) -> np.ndarray:
-    """One pass over a VT_STRING column's byte arena -> bool[R].
+                ends_tok: bool, arena=None) -> np.ndarray:
+    """One pass over a VT_STRING column's byte arena (or `arena`, bytes
+    laid out as the column's) -> bool[R].
 
     Byte-level matching equals the str-level predicates: values are
     valid UTF-8 (a pattern cannot match from inside a multibyte
     character) and every byte >= 0x80 is a word byte, as every
     non-ASCII character is a word character."""
-    arena, offs, lens = col.arena, col.offsets, col.lengths
+    offs, lens = col.offsets, col.lengths
+    if arena is None:
+        arena = col.arena
     out = np.zeros(offs.shape[0], dtype=bool)
     plen = len(pat)
     if mode in (MODE_EXACT, MODE_EXACT_PREFIX):
@@ -79,25 +92,98 @@ def _arena_scan(col, pat: bytes, mode: int, starts_tok: bool,
             out[idx[(got == np.frombuffer(pat, dtype=np.uint8)).all(1)]] = \
                 True
         return out
-    rx = re.compile(b"(?=" + re.escape(pat) + b")")
-    pos = np.fromiter((m.start() for m in rx.finditer(arena.tobytes())),
-                      dtype=np.int64)
-    if not pos.size:
-        return out
-    row = np.searchsorted(offs, pos, side="right") - 1
-    start = offs[row]
-    end = start + lens[row]
+    offs = offs.astype(np.int64)
+    ends = offs + lens
+    row, pos = _occurrences(arena, offs, ends, pat)
     tail = pos + plen
-    ok = tail <= end
+    ok = np.ones(pos.shape[0], dtype=bool)
     word = is_word_char_table()
     if starts_tok and mode in (MODE_PHRASE, MODE_PREFIX):
         prev = arena[np.maximum(pos - 1, 0)]
-        ok &= (pos == start) | ~word[prev]
+        ok &= (pos == offs[row]) | ~word[prev]
     if ends_tok and mode == MODE_PHRASE:
         nxt = arena[np.minimum(tail, arena.shape[0] - 1)]
-        ok &= (tail >= end) | ~word[nxt]
+        ok &= (tail >= ends[row]) | ~word[nxt]
     out[row[ok]] = True
     return out
+
+
+def _occurrences(arena: np.ndarray, offs: np.ndarray, ends: np.ndarray,
+                 pat: bytes):
+    """(row, arena position) of every occurrence of `pat` lying wholly
+    inside one row (int64 `offs`/`ends`), overlapping ones included, in
+    arena order."""
+    p = np.frombuffer(pat, dtype=np.uint8)
+    n = arena.shape[0] - p.shape[0] + 1
+    if n <= 0 or not offs.shape[0]:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    pos = np.nonzero(arena[:n] == p[0])[0]
+    for j in range(1, p.shape[0]):
+        pos = pos[arena[pos + j] == p[j]]
+    row = np.searchsorted(offs, pos, side="right") - 1
+    ok = (row >= 0) & (pos + p.shape[0] <= ends[np.maximum(row, 0)])
+    return row[ok], pos[ok]
+
+
+def _rows_holding(arena: np.ndarray, offs: np.ndarray, ends: np.ndarray,
+                  byte_mask: np.ndarray) -> np.ndarray:
+    """bool[R]: the row holds a byte that `byte_mask` (bool per arena
+    byte) marks."""
+    cs = np.zeros(arena.shape[0] + 1, dtype=np.int64)
+    np.cumsum(byte_mask, out=cs[1:])
+    return cs[ends] > cs[offs]
+
+
+def _pair_rows(col, a: bytes, b: bytes):
+    """`A.*B` per row of a VT_STRING column -> (definite, verify) bool[R]:
+    ordered = A and B occur and A's first occurrence ends at or before
+    the start of B's last; rows holding a newline (which `.` does not
+    cross) go to verify, the others are definite."""
+    arena = col.arena
+    offs = col.offsets.astype(np.int64)
+    ends = offs + col.lengths
+    r = offs.shape[0]
+    first_end = np.full(r, np.iinfo(np.int64).max, dtype=np.int64)
+    rows, pos = _occurrences(arena, offs, ends, a)
+    np.minimum.at(first_end, rows, pos + len(a))
+    last_b = np.full(r, -1, dtype=np.int64)
+    rows, pos = _occurrences(arena, offs, ends, b)
+    np.maximum.at(last_b, rows, pos)
+    ordered = first_end <= last_b
+    nl = _rows_holding(arena, offs, ends, arena == 0x0A)
+    return ordered & ~nl, ordered & nl
+
+
+def _bloom_prunes(bs: BlockSearch, fld: str, f) -> bool:
+    """True where the column's bloom proves that no row holds every
+    required token of filter `f`."""
+    tokens = f._tokens()
+    if not tokens:
+        return False
+    words = bs.bloom(fld)
+    return words is not None and words.shape[0] > 0 and \
+        not bloom_contains_all(words, cached_token_hashes(f, tokens))
+
+
+def _scan_column(bs: BlockSearch, fld: str):
+    """The VT_STRING column an arena scan reads, or None (special
+    fields, consts and other encodings take the per-value path)."""
+    if fld in ("_time", "_stream", "_stream_id") or fld in bs.consts():
+        return None
+    col = bs.column(fld)
+    return col if col is not None and col.vtype == VT_STRING else None
+
+
+def _verify_rows(col, bm: np.ndarray, pred) -> None:
+    """Clear the set rows of `bm` whose value fails `pred`."""
+    idx = np.nonzero(bm)[0]
+    if not idx.size:
+        return
+    buf = col.arena.tobytes()
+    starts = col.offsets[idx].tolist()
+    ends = (col.offsets[idx] + col.lengths[idx]).tolist()
+    bm[idx] = [pred(buf[a:b].decode("utf-8", "replace"))
+               for a, b in zip(starts, ends)]
 
 
 class _ValuePredFilter(Filter):
@@ -118,22 +204,14 @@ class _ValuePredFilter(Filter):
 
     def apply_to_block(self, bs: BlockSearch, bm: np.ndarray) -> None:
         fld = canonical_field(self.field)
-        tokens = self._tokens()
-        if tokens:
-            words = bs.bloom(fld)
-            if words is not None and words.shape[0] and \
-                    not bloom_contains_all(words,
-                                           cached_token_hashes(self, tokens)):
-                bm[:] = False
-                return
+        if _bloom_prunes(bs, fld, self):
+            bm[:] = False
+            return
         spec = self.scan_spec()
-        if spec is not None and fld not in ("_time", "_stream",
-                                            "_stream_id") \
-                and fld not in bs.consts():
-            col = bs.column(fld)
-            if col is not None and col.vtype == VT_STRING:
-                bm &= _arena_scan(col, *spec)
-                return
+        col = _scan_column(bs, fld) if spec is not None else None
+        if col is not None:
+            bm &= _arena_scan(col, *spec)
+            return
         visit_values(bs, fld, bm, self._pred)
 
 
@@ -287,45 +365,248 @@ class FilterExactPrefix(_ValuePredFilter):
         return f"{_q(self.field)}={quote_str(self.prefix)}*"
 
 
-_REGEX_META = frozenset(".^$*+?{}[]\\|()")
+class _AnyCaseFilter(_ValuePredFilter):
+    """`i(...)`: the value's Unicode lower case against the lowered
+    pattern (`_lower`), in scan mode MODE."""
+
+    MODE = MODE_PHRASE
+
+    def __post_init__(self):
+        self._lower = self._text().lower()
+
+    def _text(self) -> str:
+        raise NotImplementedError
+
+    def apply_to_block(self, bs, bm):
+        fld = canonical_field(self.field)
+        col = _scan_column(bs, fld)
+        low = self._lower
+        if col is None or not low or not low.isascii():
+            visit_values(bs, fld, bm, self._pred)
+            return
+        # the byte fold of the arena decides the ASCII rows; rows holding
+        # a byte >= 0x80 are settled by the predicate, as Unicode lowering
+        # can map non-ASCII onto ASCII (U+212A -> 'k') or change lengths
+        arena = col.arena.copy()
+        arena[(arena >= 65) & (arena <= 90)] += 32
+        hit = _arena_scan(col, low.encode(), self.MODE, is_word_char(low[0]),
+                          self.MODE == MODE_PHRASE and is_word_char(low[-1]),
+                          arena=arena)
+        offs = col.offsets.astype(np.int64)
+        high = _rows_holding(col.arena, offs, offs + col.lengths,
+                             col.arena >= 0x80)
+        bm &= hit | high
+        check = bm & high
+        if check.any():
+            _verify_rows(col, check, self._pred)
+            bm &= ~high | check
+
+
+@dataclass(repr=False)
+class FilterAnyCasePhrase(_AnyCaseFilter):
+    field: str
+    phrase: str
+
+    def _text(self):
+        return self.phrase
+
+    def _pred(self, v):
+        return match_any_case_phrase(v, self._lower)
+
+    def to_string(self):
+        return f"{_q(self.field)}i({quote_str(self.phrase)})"
+
+
+@dataclass(repr=False)
+class FilterAnyCasePrefix(_AnyCaseFilter):
+    field: str
+    prefix: str
+
+    MODE = MODE_PREFIX
+
+    def _text(self):
+        return self.prefix
+
+    def _pred(self, v):
+        return match_any_case_prefix(v, self._lower)
+
+    def to_string(self):
+        return f"{_q(self.field)}i({quote_str(self.prefix)}*)"
 
 
 @dataclass(repr=False)
 class FilterRegexp(_ValuePredFilter):
-    """`~"literal"`: a regexp without metacharacters, i.e. a substring
-    filter.  Any other regexp raises NotImplementedError."""
+    """`~"re"`: `re.search` semantics.  Every match holds each of the
+    pattern's mandatory literal runs, so an arena scan per run prunes
+    the rows `re.search` has to see; a pattern that is one literal
+    (`_pure`) is that scan alone, and `A.*B` with literal A and B
+    (`_pair`) is decided by `_pair_rows`."""
 
     field: str
     pattern: str
 
     def __post_init__(self):
-        if any(c in _REGEX_META for c in self.pattern):
-            raise NotImplementedError(
-                f"regexp filter {self.pattern!r}: only literal substrings "
-                f"are supported")
+        self._re = re.compile(self.pattern)
+        self._substr_literals = regex_literal_runs(self.pattern)
+        self._bloom_tokens = regex_literal_tokens(self.pattern)
+        self._pure = bool(self.pattern) and \
+            re.escape(self.pattern) == self.pattern
+        parts = self.pattern.split(".*")
+        self._pair = None
+        if len(parts) == 2 and all(p and re.escape(p) == p for p in parts):
+            self._pair = (parts[0].encode("utf-8"),
+                          parts[1].encode("utf-8"))
 
     def _pred(self, v):
-        return self.pattern in v
-
-    def scan_spec(self):
-        if not self.pattern:
-            return None
-        return (self.pattern.encode("utf-8"), MODE_SUBSTRING, False, False)
+        return self._re.search(v) is not None
 
     def _tokens(self):
-        # whole words inside the literal: the first and last token may
-        # be partial words of a match
-        lit = self.pattern
-        toks = tokenize_string(lit)
-        if not toks:
-            return []
-        start = 1 if (lit[0].isalnum() or lit[0] == "_") else 0
-        end = len(toks) - (1 if (lit[-1].isalnum() or lit[-1] == "_")
-                           else 0)
-        return toks[start:end]
+        return self._bloom_tokens
+
+    def apply_to_block(self, bs, bm):
+        fld = canonical_field(self.field)
+        if _bloom_prunes(bs, fld, self):
+            bm[:] = False
+            return
+        col = _scan_column(bs, fld)
+        if col is not None and self._pair is not None:
+            definite, verify = _pair_rows(col, *self._pair)
+            bm &= definite | verify
+            check = bm & verify
+            if check.any():
+                _verify_rows(col, check, self._pred)
+                bm &= ~verify | check
+            return
+        if col is None or not self._substr_literals:
+            visit_values(bs, fld, bm, self._pred)
+            return
+        for lit in self._substr_literals:
+            bm &= _arena_scan(col, lit.encode("utf-8"), MODE_SUBSTRING, False,
+                              False)
+            if not bm.any():
+                return
+        if not self._pure:
+            _verify_rows(col, bm, self._pred)
 
     def to_string(self):
         return f"{_q(self.field)}~{quote_str(self.pattern)}"
+
+
+def regex_literal_tokens(pattern: str) -> list[str]:
+    """Whole word tokens every match must contain, for bloom probes:
+    the tokens of each mandatory literal run (`_regex_literal_parts`)
+    less the first and the last, which may be parts of longer words."""
+    out = []
+    for lit, drop_last, is_final in _regex_literal_parts(pattern):
+        toks = tokenize_string(lit)
+        if not toks:
+            continue
+        start = 1 if (lit and (lit[0].isalnum() or lit[0] == "_")) else 0
+        end = len(toks)
+        if drop_last or not is_final:
+            end -= 1
+        else:
+            if lit and (lit[-1].isalnum() or lit[-1] == "_"):
+                end -= 1
+        out.extend(toks[start:end])
+    return out
+
+
+def regex_literal_runs(pattern: str) -> list[str]:
+    """Maximal literal substrings every match must contain, untokenized:
+    sound for plain substring prefilters (a scan for "dead" prefilters
+    `~"dead.*exceeded"`), partial words included."""
+    return [lit for lit, _d, _f in _regex_literal_parts(pattern) if lit]
+
+
+def _regex_literal_parts(pattern: str) -> list[tuple[str, bool, bool]]:
+    """(literal run, last char dropped, is final) parts of a pattern.
+    Inline flags (`(?i)`), alternation at the top level, backreferences
+    and octal escapes give no parts; what lies inside a group, a class
+    or a counted repetition is not mandatory; a character followed by
+    `*`, `?` or `+` ends its run and leaves it."""
+    if "(?" in pattern:
+        return []
+    literals = []
+    cur = []
+    i, n = 0, len(pattern)
+    depth_unsafe = 0
+    while i < n:
+        c = pattern[i]
+        if c == "\\":
+            e = pattern[i + 1] if i + 1 < n else ""
+            # control escapes denote real characters, not the escape letter
+            ctrl = {"n": "\n", "t": "\t", "r": "\r", "f": "\f", "v": "\v",
+                    "a": "\a", "0": "\0"}
+            if e == "0" and i + 2 < n and pattern[i + 2] in "01234567":
+                return []
+            if e in ctrl:
+                if depth_unsafe == 0:
+                    cur.append(ctrl[e])
+                i += 2
+                continue
+            # \xNN, \uNNNN and \UNNNNNNNN denote one character
+            if e in ("x", "u", "U"):
+                width = {"x": 2, "u": 4, "U": 8}[e]
+                hexs = pattern[i + 2:i + 2 + width]
+                if len(hexs) != width or \
+                        any(h not in "0123456789abcdefABCDEF"
+                            for h in hexs):
+                    return []
+                if depth_unsafe == 0:
+                    cur.append(chr(int(hexs, 16)))
+                i += 2 + width
+                continue
+            if e in "123456789":
+                return []
+            if e and e not in "wWdDsSbBAZ":
+                if depth_unsafe == 0:
+                    cur.append(e)
+                i += 2
+                continue
+            # a class escape stands for unknown characters
+            cur = _flush_literal(cur, literals, drop_last=True)
+            i += 2
+            continue
+        if c in "|([{":
+            if c == "|":
+                if depth_unsafe == 0:
+                    return []
+                i += 1
+                continue
+            if c == "{" and cur and depth_unsafe == 0:
+                # the quantifier may be {0,n}: the char before is optional
+                cur.pop()
+            cur = _flush_literal(cur, literals, drop_last=True)
+            depth_unsafe += 1
+            i += 1
+            continue
+        if c in ")]}":
+            depth_unsafe = max(0, depth_unsafe - 1)
+            cur = []
+            i += 1
+            continue
+        if c in "*?+":
+            if cur and depth_unsafe == 0:
+                cur.pop()
+                cur = _flush_literal(cur, literals, drop_last=True)
+            i += 1
+            continue
+        if c in ".^$":
+            cur = _flush_literal(cur, literals, drop_last=True)
+            i += 1
+            continue
+        if depth_unsafe == 0:
+            cur.append(c)
+        i += 1
+    _flush_literal(cur, literals, drop_last=False, final=True)
+    return literals
+
+
+def _flush_literal(cur, literals, drop_last, final=False):
+    if cur:
+        literals.append(("".join(cur), drop_last, final))
+    return []
 
 
 @dataclass(repr=False)

@@ -3,7 +3,8 @@ executor and of the device scan.
 
 - match_phrase: substring occurrence with word-boundary checks on both
   sides; match_prefix: a boundary before it only, and an empty prefix
-  matches any non-empty string.
+  matches any non-empty string; match_any_case_*: the same over the
+  value's Unicode lower case (the pattern arrives lowered).
 - word chars: ASCII [A-Za-z0-9_] plus every non-ASCII character, the
   same table the byte tokenizer and the scan kernel use.
 - parse_number: a LogsQL number with size suffixes, the value that
@@ -53,6 +54,14 @@ def match_prefix(s: str, prefix: str) -> bool:
             pos = n + 1
             continue
         return True
+
+
+def match_any_case_phrase(s: str, phrase_lower: str) -> bool:
+    return match_phrase(s.lower(), phrase_lower)
+
+
+def match_any_case_prefix(s: str, prefix_lower: str) -> bool:
+    return match_prefix(s.lower(), prefix_lower)
 
 
 _FLOAT_RE = re.compile(r"^[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?$")

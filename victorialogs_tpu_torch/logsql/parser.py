@@ -3,8 +3,8 @@
 Implicit AND between adjacent filters, `or`/`and`/`not` (`!`, `-`),
 parentheses, `field:filter` scoping, compound phrases glued from
 adjacent unspaced tokens, `*`, `prefix*`, `=exact`, `=prefix*`,
-`~"literal"`, `{...}` stream filters, `_time:` filters and the trailing
-`| stats ... count()` pipe.  Constructs outside the slice raise
+`~"regexp"`, `i(phrase)` and `i(prefix*)`, `{...}` stream filters,
+`_time:` filters and the trailing pipes.  Constructs outside the slice raise
 NotImplementedError instead of parsing into something else.
 """
 
@@ -14,7 +14,8 @@ from dataclasses import dataclass, field as dc_field
 
 from ..storage.stream_filter import StreamFilter, TagFilter
 from .duration import parse_duration, ts_bounds
-from .filters import (Filter, FilterAnd, FilterExact, FilterExactPrefix,
+from .filters import (Filter, FilterAnd, FilterAnyCasePhrase,
+                      FilterAnyCasePrefix, FilterExact, FilterExactPrefix,
                       FilterNoop, FilterNot, FilterOr, FilterPhrase,
                       FilterPrefix, FilterRegexp, FilterStream, FilterTime)
 from .lexer import Lexer
@@ -23,10 +24,11 @@ from .pipes import ParseError, parse_pipes
 MAX_TS = (1 << 63) - 1
 MIN_TS = -(1 << 63)
 
-# function-style filters of the full language, outside the slice
-_FUNC_FILTERS = ("contains_all", "contains_any", "eq_field", "exact", "i",
-                 "in", "ipv4_range", "le_field", "len_range", "lt_field",
-                 "range", "re", "seq", "string_range", "value_type")
+# function-style filters of the full language outside the slice (`i` is
+# in it)
+_FUNC_FILTERS = ("contains_all", "contains_any", "eq_field", "exact", "in",
+                 "ipv4_range", "le_field", "len_range", "lt_field", "range",
+                 "re", "seq", "string_range", "value_type")
 
 
 @dataclass
@@ -140,6 +142,9 @@ def parse_generic_filter(lex: Lexer, field_name: str) -> Filter:
     if lex.is_keyword("not", "!", "-"):
         lex.next_token()
         return FilterNot(parse_generic_filter(lex, field_name))
+    if lex.is_keyword("i") and lex.pos < len(lex.s) and \
+            lex.s[lex.pos] == "(":
+        return _parse_i(lex, field_name)
     for kw in _FUNC_FILTERS:
         if lex.is_keyword(kw) and lex.pos < len(lex.s) and \
                 lex.s[lex.pos] in "([":
@@ -199,6 +204,31 @@ def _parse_regexp_tail(lex: Lexer, field_name: str) -> Filter:
     else:
         pat = _get_compound_token(lex)
     return FilterRegexp(field_name, pat)
+
+
+def _parse_i(lex: Lexer, field_name: str) -> Filter:
+    """`i(phrase)` or `i(prefix*)`: one argument, any case."""
+    lex.next_token()
+    if not lex.is_keyword("("):
+        raise ParseError("missing '('")
+    lex.next_token()
+    args: list[tuple[str, bool]] = []
+    while not lex.is_keyword(")"):
+        if lex.is_keyword(","):
+            lex.next_token()
+            continue
+        tok = _get_compound_token(lex, stop=("*", ",", "(", ")", "|", ""))
+        star = lex.is_keyword("*") and not lex.is_skipped_space
+        if star:
+            lex.next_token()
+        args.append((tok, star))
+    lex.next_token()
+    if len(args) != 1:
+        raise ParseError("i() expects one arg")
+    phrase, star = args[0]
+    if star:
+        return FilterAnyCasePrefix(field_name, phrase)
+    return FilterAnyCasePhrase(field_name, phrase)
 
 
 def _parse_eq_tail(lex: Lexer, field_name: str) -> Filter:
