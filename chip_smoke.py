@@ -72,7 +72,22 @@ Phases, each fatal on failure:
    (`path_queries`) equal the host executor with every part on the
    card, one gated pair launch a part (its counts zeroed right before
    this path) and maybe rows (newlines, truncated values) settled on
-   the host.
+   the host.  Then the filters' path on the main store, its counts
+   zeroed right before it (`filter_queries`): `status:>=500` and
+   `dur:range[1000, 2000)` (a `numrange` node, unsigned compares of the
+   staged offsets), `lvl:in(error, warn)` (two exact scans),
+   `user:len_range(6, 8)` (`lenrange`), `_stream_id:` of one stream of
+   the store (candidate blocks pruned to the stream; ORed with a range,
+   a mixed-truth `maskleaf`), and two trees the planner declines,
+   `error lat:>99.9` and `error user:string_range(...) | stats by (app)
+   count()`, which walk leaf by leaf: the scan on the card, the float
+   range and the string range on the host (`cpu_fallbacks` must move on
+   them and only them), the stats of the matched rows reduced on the
+   card.  Each equals the host executor with every part on the card and
+   its listed launches a part, and answers like the main queries; then
+   `handle_query` on `error` with `extra_filters` {"app": ["app-1",
+   "app-2"]} equals the same handler with no runner (three scans, one
+   device part).  The scan and the count must move on this path.
 4. report: per-query time of the cold run (no rows built), p50 over
    warm runs without the result rows built, the time of the one warm
    run with them built (dict rows, the run held against the host
@@ -126,7 +141,7 @@ FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
 ANSWER_KEYS = ("query", "rows_out", "host_s", "device_p50_s",
                "device_collect_p50_s", "ndjson_p50_s", "ndjson_bytes",
                "ndjson_rows_per_s", "api_query_p50_s", "api_fields_p50_s",
-               "api_stats_p50_s")
+               "api_stats_p50_s", "device_busy_s", "cpu_fallbacks")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak
 
@@ -1400,6 +1415,33 @@ def queries(start: int) -> list:
     ]
 
 
+def filter_queries(stream_id: str) -> list:
+    """The filters' path on the main store: (name, LogsQL, {kernel:
+    launches per device part}, whether a leaf falls back to the host).
+    `stream_id` names one stream of the store."""
+    scan, count = "match_scan", "stats_count_seg"
+    return [
+        ("range_stats", "status:>=500 | stats by (app) count()",
+         {count: 1}, False),
+        ("range_rows", "error dur:range[1000, 2000)", {scan: 1}, False),
+        ("in_stats", "lvl:in(error, warn) | stats by (app, lvl) count()",
+         {scan: 2, count: 1}, False),
+        ("len_stats", "user:len_range(6, 8) | stats count()", {count: 1},
+         False),
+        # the stream's blocks alone are candidates
+        ("stream_id_rows", f"_stream_id:{stream_id} error", {scan: 1},
+         False),
+        ("stream_id_stats", f"(_stream_id:{stream_id} or status:>=500) "
+                            f"| stats by (app) count()", {count: 1}, False),
+        # the float range runs on the host, the scan on the card
+        ("fallback_rows", "error lat:>99.9", {scan: 1}, True),
+        # and string_range; the matched rows reduced on the card
+        ("fallback_stats", 'error user:string_range("user-1", "user-2") '
+                           '| stats by (app) count()', {scan: 1, count: 1},
+         True),
+    ]
+
+
 PATH_ROWS = 65_536            # rows of the gated pair's store, one flush
 PATH_QUERY = '~"/api/v1/users.*timeout"'   # bloom tokens `api`, `v1`
 # request-path messages of apps 0 and 1: A then B, A alone, B before A,
@@ -1473,11 +1515,13 @@ def ndjson_lines(rows: list) -> bytes:
 
 
 def row_answers(storage, tenants, name: str, q: str, want: list, runner,
-                kernels: dict, wrappers, timed) -> dict:
+                kernels: dict, wrappers, timed,
+                limit_parts: int | None = 1) -> dict:
     """A row query's answers: the full NDJSON export (held against the
     host executor's rows serialized) and /select/logsql/query at its
-    default limit (held against the same handler with no runner, one
-    device part); `phrase` also answers FIELDS_CASE."""
+    default limit (held against the same handler with no runner, on
+    `limit_parts` device parts, any number when None); `phrase` also
+    answers FIELDS_CASE."""
     from victorialogs_tpu_torch.engine.emit import ndjson_block
     from victorialogs_tpu_torch.engine.searcher import run_query
     from victorialogs_tpu_torch.server.vlselect import handle_query
@@ -1507,8 +1551,9 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
                                  lambda: handle_query(storage, args, {}))
         before = launch_counts(wrappers, parts)
         chunks = handle_query(storage, args, {}, runner=runner)
-        check_launches(f"{label} {name}", wrappers, parts, before, kernels,
-                       want_parts=1)
+        out[f"{label}_parts"] = check_launches(
+            f"{label} {name}", wrappers, parts, before, kernels,
+            want_parts=limit_parts if label == "api_query" else 1)
         if chunks != want_chunks:
             fail(f"{label} {name}: the answer differs from the handler's "
                  f"with no runner")
@@ -1517,6 +1562,33 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
             WARM_RUNS)
         out[f"{label}_bytes"] = sum(map(len, chunks))
     return out
+
+
+EXTRA_FILTERS = '{"app": ["app-1", "app-2"]}'
+
+
+def extra_filters_answer(storage, runner, wrappers, timed) -> dict:
+    """/select/logsql/query on `error` with EXTRA_FILTERS (an `in` over
+    the stream field `app`), held against the same handler with no
+    runner: one device part, the two exact scans of the `in` and the
+    phrase scan."""
+    from victorialogs_tpu_torch.server.vlselect import handle_query
+    args = {"query": "error", "extra_filters": EXTRA_FILTERS}
+    want = handle_query(storage, dict(args), {}, runner=None)
+    before = launch_counts(wrappers, runner.stats_counters)
+    got = handle_query(storage, dict(args), {}, runner=runner)
+    check_launches("api_query extra_filters", wrappers,
+                   runner.stats_counters, before, {"match_scan": 3},
+                   want_parts=1)
+    if got != want or not got:
+        fail("api_query extra_filters: the answer differs from the "
+             "handler's with no runner")
+    return {"query": f"error, extra_filters={EXTRA_FILTERS}",
+            "rows_out": sum(c.count(b"\n") for c in got),
+            "api_query_bytes": sum(map(len, got)),
+            "api_query_p50_s": timed(
+                lambda: handle_query(storage, dict(args), {},
+                                     runner=runner), WARM_RUNS)}
 
 
 def check_default_runner(what: str, storage, want, answer) -> None:
@@ -1660,7 +1732,11 @@ def main() -> int:
     report = []
     phrase_rows = None
     t0_queries = time.perf_counter()
-    for name, q, kernels in queries(start):
+    def drive(name: str, q: str, kernels: dict):
+        """One query through every check and timing of phase 3: the host
+        executor, a cold run (its launches checked) and a warm one held
+        against it, warm p50s, a profiled run and its answers; (report
+        row, result rows)."""
         t0 = time.perf_counter()
         want = run_query_collect(storage, tenants, q)
         t_host = time.perf_counter() - t0
@@ -1685,15 +1761,6 @@ def main() -> int:
         if got != want:
             fail(f"query {q!r}: device result differs from the host "
                  f"executor ({len(got)} vs {len(want)} rows)")
-        if name == "count_all" and got != [{"count(*)": str(nrows)}]:
-            fail(f"count_all returned {got}, want {nrows}")
-        # the generated text is lower case ASCII: i(ERROR) is `error`
-        if name == "phrase":
-            phrase_rows = got
-        if name == "anycase":
-            if got != phrase_rows:
-                fail("anycase: i(ERROR) differs from the phrase error")
-            phrase_rows = None
         p50 = timed(warm_run, WARM_RUNS)
         wall, busy = busy_share(warm_run)
         idle = None if busy is None else 1 - busy / wall
@@ -1719,21 +1786,36 @@ def main() -> int:
                 f"{ans['api_stats_p50_s']:.4f} s, "
                 f"{ans['api_stats_samples']} samples")
         else:
+            # fewer than 1000 rows a part: the limit-1000 answer walks on
+            limit_parts = 1 if len(want) >= 1000 * dev_parts else None
             ans = row_answers(storage, tenants, name, q, want, runner,
-                              kernels, wrappers, timed)
+                              kernels, wrappers, timed, limit_parts)
             log(f"answer {name}: NDJSON export p50 "
                 f"{ans['ndjson_p50_s']:.4f} s for {ans['ndjson_bytes']} B, "
                 f"{ans['ndjson_rows_per_s']:,.0f} rows/s (dict rows p50 "
                 f"{collect_s:.4f} s, host executor {t_host:.3f} s); query "
-                f"at limit 1000 p50 {ans['api_query_p50_s']:.4f} s, one "
-                f"device part" + (
+                f"at limit 1000 p50 {ans['api_query_p50_s']:.4f} s, "
+                f"{ans['api_query_parts']} device parts" + (
                     f"; with{FIELDS_CASE} p50 {ans['api_fields_p50_s']:.4f} "
                     f"s" if "api_fields_p50_s" in ans else ""))
         row.update(ans)
+        return row, got
+
+    for name, q, kernels in queries(start):
+        row, got = drive(name, q, kernels)
+        if name == "count_all" and got != [{"count(*)": str(nrows)}]:
+            fail(f"count_all returned {got}, want {nrows}")
+        # the generated text is lower case ASCII: i(ERROR) is `error`
+        if name == "phrase":
+            phrase_rows = got
+        if name == "anycase":
+            if got != phrase_rows:
+                fail("anycase: i(ERROR) differs from the phrase error")
+            phrase_rows = None
         report.append(row)
         # a row query's ~1.4M result dicts, alive into the next query,
         # would make the collector's full passes land in its timings
-        del want, got
+        del got
     launches = {w.__name__: w.launches for w in wrappers}
     log(f"queries: {time.perf_counter() - t0_queries:.1f} s")
     log(f"main-path launches: {launches}")
@@ -1749,6 +1831,37 @@ def main() -> int:
              f"per-row emit")
     log(f"runner staged bytes: {runner.cache.bytes()} "
         f"{runner.cache.bytes_by_kind()}")
+
+    # phase 3, the filters' path on the same store: numeric ranges, in,
+    # len_range, _stream_id and the per-leaf path, its counts zeroed
+    # first
+    t_phase = time.perf_counter()
+    for w in wrappers:
+        w.launches = 0
+    sid = next(iter(storage.partitions.values())).parts[0] \
+        .block_stream_id(0).as_string()
+    for name, q, kernels, fallback in filter_queries(sid):
+        f0 = parts["cpu_fallbacks"]
+        row, got = drive(name, q, kernels)
+        row["cpu_fallbacks"] = parts["cpu_fallbacks"] - f0
+        if (row["cpu_fallbacks"] > 0) != fallback:
+            fail(f"query {name}: {row['cpu_fallbacks']} leaves fell back "
+                 f"to the host")
+        report.append(row)
+        del got
+    row = extra_filters_answer(storage, runner, wrappers, timed)
+    log(f"answer extra_filters: {row['api_query_bytes']} B, query at "
+        f"limit 1000 p50 {row['api_query_p50_s']:.4f} s, one device part")
+    report.append(row)
+    flaunches = {w.__name__: w.launches for w in wrappers}
+    log(f"filters' path launches: {flaunches}; runner parts: {parts}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for w in (K.match_scan, stats_count_seg):
+        if flaunches[w.__name__] == 0:
+            fail(f"{w.__name__} was not launched on the filters' path")
+        launches[w.__name__] += flaunches[w.__name__]
+    if parts["host_parts"]:
+        fail(f"{parts['host_parts']} parts ran on the host")
 
     # phase 3, the gated pair's path: a store whose request paths lie in
     # a quarter of the streams, so the pair's bloom tokens rule out the

@@ -398,8 +398,8 @@ def test_stats_args_cover_every_stats_query():
     ({"query": "error", "end": "nan"}, 400),
     ({"query": "error", "time": "1e400"}, 400),
     ({"query": "error | sort by (_time)"}, 501),
-    ({"query": "error", "extra_filters": '{"app":"app-1"}'}, 400),
-    ({"query": "error", "extra_stream_filters": '{app="app-1"}'}, 400),
+    ({"query": "error", "extra_filters": '{"app":"app-1"'}, 400),
+    ({"query": "error", "extra_stream_filters": '{app="app-1"'}, 400),
 ])
 def test_handle_query_refuses(stores, args, status):
     _start, port, _jax_st = stores

@@ -103,6 +103,10 @@ class BlockResult:
         br._cols = dict(cols)
         return br
 
+    def is_unprojected_block(self) -> bool:
+        """A stored block that no `fields` pipe has projected."""
+        return self._bs is not None and self._restrict is None
+
     def _hidden(self, name: str) -> bool:
         return self._restrict_set is not None and \
             name not in self._restrict_set

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..storage.values_encoder import VT_DICT
+from ..storage.values_encoder import VT_DICT, VT_NAMES
 
 
 class BlockSearch:
@@ -32,6 +32,19 @@ class BlockSearch:
 
     def column(self, name: str):
         return self.part.block_column(self.block_idx, name)
+
+    def column_meta(self, name: str) -> dict | None:
+        """The column's header: type `t`, `min`/`max` of a numeric
+        column; None for a const or missing column."""
+        return self.part.block_column_meta(self.block_idx, name)
+
+    def value_type_name(self, name: str) -> str:
+        """The column's encoding as value_type() names it: "const" for
+        a const column, "" for a missing one."""
+        if name in self.consts():
+            return "const"
+        meta = self.column_meta(name)
+        return "" if meta is None else VT_NAMES[meta["t"]]
 
     def bloom(self, name: str):
         return self.part.block_column_bloom(self.block_idx, name)

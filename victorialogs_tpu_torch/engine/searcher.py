@@ -1,8 +1,11 @@
 """Query execution: partitions -> parts -> candidate blocks -> pipes.
 
-`run_query` extracts the query's time range, resolves AND-path
-`_stream:{...}` filters against each partition's stream index, selects
-each part's candidate blocks (time range, tenant, stream), and feeds the
+`run_query` first runs the subqueries of `in(...)`, `contains_all(...)`
+and `contains_any(...)` filters (`init_subqueries`: each must narrow
+its output to one column with `| fields x`), then extracts the query's
+time range, resolves AND-path `_stream:{...}` filters against each
+partition's stream index, selects each part's candidate blocks (time
+range, tenant, stream, AND-path `_stream_id:` ids), and feeds the
 matching rows through the pipe chain.
 
 The runner is the seam the device path plugs into.  Without one, every
@@ -32,7 +35,9 @@ import numpy as np
 
 from ..gpu.stats_device import build_partial_states
 from ..logsql.duration import format_rfc3339
-from ..logsql.filters import FilterAnd, FilterStream
+from ..logsql.filters import (FilterAnd, FilterContainsAll,
+                              FilterContainsAny, FilterIn, FilterNot,
+                              FilterOr, FilterStream, FilterStreamID)
 from ..logsql.parser import MAX_TS, MIN_TS, Query, parse_query
 from ..logsql.pipes import PipeStats, SinkProcessor, compute_needed_fields
 from ..storage.log_rows import TenantID
@@ -47,8 +52,9 @@ class SearchContext:
 
 
 def _stream_filters(f, out: list) -> list:
-    """Stream filters on the top-level AND path (usable for pruning)."""
-    if isinstance(f, FilterStream):
+    """`_stream:{...}` and `_stream_id:` filters on the top-level AND
+    path (usable for pruning)."""
+    if isinstance(f, (FilterStream, FilterStreamID)):
         out.append(f)
     elif isinstance(f, FilterAnd):
         for sub in f.filters:
@@ -56,16 +62,57 @@ def _stream_filters(f, out: list) -> list:
     return out
 
 
+def _iter_subquery_filters(f):
+    if isinstance(f, (FilterIn, FilterContainsAll, FilterContainsAny)):
+        if f.subquery is not None:
+            yield f
+    elif isinstance(f, (FilterAnd, FilterOr)):
+        for sub in f.filters:
+            yield from _iter_subquery_filters(sub)
+    elif isinstance(f, FilterNot):
+        yield from _iter_subquery_filters(f.inner)
+
+
+def _run_single_column_subquery(storage, tenants, sub, runner=None
+                                ) -> list[str]:
+    """The values of a subquery that yields exactly one column."""
+    values: list[str] = []
+    col_name: list = [None]
+
+    def sink(br: BlockResult):
+        if br.is_unprojected_block():
+            raise ValueError(
+                "in(<subquery>) must narrow its output to one column, "
+                "e.g. `... | fields x`")
+        names = br.column_names()
+        if len(names) != 1:
+            raise ValueError(
+                f"in(<subquery>) must yield exactly one column, got "
+                f"{names!r}")
+        if col_name[0] is None:
+            col_name[0] = names[0]
+        elif col_name[0] != names[0]:
+            raise ValueError(
+                f"in(<subquery>) yielded inconsistent columns "
+                f"{col_name[0]!r} vs {names[0]!r}")
+        values.extend(br.column(names[0]))
+    run_query(storage, tenants, sub, sink, runner=runner)
+    return values
+
+
+def init_subqueries(storage, tenants, q: Query, runner=None) -> None:
+    """Give every `in(<subquery>)`-style filter of the query its values
+    by running its subquery."""
+    for f in list(_iter_subquery_filters(q.filter)):
+        f.set_values(_run_single_column_subquery(storage, tenants,
+                                                 f.subquery, runner))
+
+
 def host_bitmap(f, bs) -> np.ndarray:
     """Bool bitmap of the filter over one block, evaluated on the host."""
     bm = np.ones(bs.nrows, dtype=bool)
     f.apply_to_block(bs, bm)
     return bm
-
-
-def host_eval(f, bss: dict) -> dict:
-    """block_idx -> bool bitmap of the filter, evaluated on the host."""
-    return {bi: host_bitmap(f, bs) for bi, bs in bss.items()}
 
 
 def absorb_stats_partials(head, ps, spec, partials) -> None:
@@ -79,6 +126,14 @@ def absorb_stats_partials(head, ps, spec, partials) -> None:
             spec, ps.funcs, cnt, field_stats, uniq_vals, quant_vals))
 
 
+def _allowed_streams(f, pt, tenants) -> set:
+    """The partition's streams a `_stream` or `_stream_id` filter
+    keeps."""
+    if isinstance(f, FilterStream):
+        return f.resolve(pt, tenants)
+    return {sid for sid in pt.streams if sid.as_string() in f._set}
+
+
 def _candidate_parts(storage, q: Query, tenants: tuple, min_ts: int,
                      max_ts: int):
     """(part, {block: BlockSearch}) of every part with candidate blocks
@@ -89,7 +144,7 @@ def _candidate_parts(storage, q: Query, tenants: tuple, min_ts: int,
         ctx = SearchContext(partition=pt, tenants=tenants)
         allowed = None
         if sfs:
-            allowed = set.intersection(*(f.resolve(pt, tenants)
+            allowed = set.intersection(*(_allowed_streams(f, pt, tenants)
                                          for f in sfs))
             if not allowed:
                 continue
@@ -115,6 +170,7 @@ def run_query(storage, tenants, q: Query | str, write_block,
     if isinstance(tenants, TenantID):
         tenants = [tenants]
     tenants = tuple(tenants)
+    init_subqueries(storage, tenants, q, runner)
     min_ts, max_ts = q.get_time_range()
     if min_ts != MIN_TS and max_ts != MAX_TS:
         # rate() and rate_sum() divide by the time filter's seconds

@@ -15,11 +15,18 @@ device program (gpu/fused.py), runs it, and either
   are downloaded (`run_part_stats`).
 
 Maybe rows (values truncated by the staging) are settled on the host
-with the filter's own predicate.  Parts whose filter the planner
-cannot express fall back to host evaluation; parts with a candidate
-block that some axis or value column cannot stage run their filter on
-the card and leave the stats to the host pipe.  Every result equals the
-host executor's.
+with the filter's own predicate.  Where the planner cannot express the
+whole tree, the runner walks it leaf by leaf (`_LeafWalk`): AND and OR
+stop early per block, as the host's do; each leaf the planner can
+express runs on the card as a one-leaf program, only over the rows
+whose answer is still open; any other leaf runs `apply_to_block` on the
+host (`cpu_fallbacks` counts them).  A stats query's declined tree then
+uploads the matched rows as one mask and reduces them with the same
+count or value launch, unless fewer than `stats_host_threshold` rows
+matched (the host pipe takes those).  Parts with a candidate block that
+some axis or value column cannot stage run their filter on the card and
+leave the stats to the host pipe.  Every result equals the host
+executor's.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..engine.searcher import host_eval
+from ..logsql import filters as F
 from ..storage.values_encoder import VT_DICT, VT_STRING
 from .bloom_device import block_starts, stage_bloom_plane
 from .fused import (_NoFuse, _Planner, eval_node, part_layout,
@@ -112,11 +119,16 @@ class AxesAssembly:
 
 
 class TorchBatchRunner:
+    # below this many matched rows a declined tree's stats go to the
+    # host pipe instead of a mask upload and a launch
+    stats_host_threshold = 1024
+
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self.cache = StagingCache()
         self.stats_counters = {"device_parts": 0, "device_rows": 0,
-                               "host_parts": 0, "maybe_rows": 0}
+                               "host_parts": 0, "maybe_rows": 0,
+                               "cpu_fallbacks": 0}
 
     def close(self) -> None:
         self.cache.clear()
@@ -316,6 +328,19 @@ class TorchBatchRunner:
         stats the card cannot reduce)."""
         return device_stats_spec(q)
 
+    def _rows_mask(self, part, layout, blocks: dict):
+        """bool[RLp] on the card: the rows of `blocks` (block idx -> a
+        bool row mask, or None for all its rows)."""
+        if len(blocks) == part.num_blocks and \
+                all(m is None or m.all() for m in blocks.values()):
+            return torch.arange(layout.nrows_padded,
+                                device=self.device) < layout.nrows
+        m = np.zeros(layout.nrows_padded, dtype=bool)
+        for bi, rows in blocks.items():
+            s = layout.starts[bi]
+            m[s:s + part.block_rows(bi)] = True if rows is None else rows
+        return self.put(m)
+
     def _program(self, f, part, bss):
         """(tree, args, layout, has_maybe, cand) or None when the planner
         declines the tree."""
@@ -325,38 +350,16 @@ class TorchBatchRunner:
             tree = planner.plan(f)
         except _NoFuse:
             return None
-        if len(bss) == part.num_blocks:
-            cand = torch.arange(layout.nrows_padded,
-                                device=self.device) < layout.nrows
-        else:
-            m = np.zeros(layout.nrows_padded, dtype=bool)
-            for bi in bss:
-                s = layout.starts[bi]
-                m[s:s + part.block_rows(bi)] = True
-            cand = self.put(m)
+        cand = self._rows_mask(part, layout, dict.fromkeys(bss))
         return tree, planner.args, layout, planner.has_maybe, cand
 
     def _count_device_part(self, layout) -> None:
         self.stats_counters["device_parts"] += 1
         self.stats_counters["device_rows"] += layout.nrows
 
-    def _host(self, f, bss) -> dict:
-        self.stats_counters["host_parts"] += 1
-        return host_eval(f, bss)
-
-    def run_part(self, f, part, bss: dict) -> dict:
-        """block_idx -> bool bitmap of the filter over the candidate
-        blocks, bit-identical to the host executor."""
-        prog = self._program(f, part, bss)
-        if prog is None:
-            return self._host(f, bss)
-        tree, args, layout, has_maybe, cand = prog
-        self._count_device_part(layout)
-        rlp = layout.nrows_padded
-        if tree in (("true",), ("false",)):
-            return {bi: np.full(bs.nrows, tree == ("true",))
-                    for bi, bs in bss.items()}
-        d, m = eval_node(tree, args, rlp, self.device)
+    def _download(self, d, m, cand, has_maybe: bool, rlp: int):
+        """Host copies of the definite and maybe rows among `cand`
+        (maybe None when there are none)."""
         packed = [packbits(d & cand)]
         if has_maybe and m is not None:
             packed.append(packbits(m & cand))
@@ -366,7 +369,61 @@ class TorchBatchRunner:
             if len(packed) > 1 else None
         if m_np is not None:
             self.stats_counters["maybe_rows"] += int(m_np.sum())
+        return d_np, m_np
+
+    def run_part(self, f, part, bss: dict) -> dict:
+        """block_idx -> bool bitmap of the filter over the candidate
+        blocks, bit-identical to the host executor."""
+        prog = self._program(f, part, bss)
+        if prog is None:
+            bms, on_card = self._run_leaves(f, part, bss)
+            if on_card:
+                self._count_device_part(self.layout(part))
+            else:
+                self.stats_counters["host_parts"] += 1
+            return bms
+        tree, args, layout, has_maybe, cand = prog
+        self._count_device_part(layout)
+        if tree in (("true",), ("false",)):
+            return {bi: np.full(bs.nrows, tree == ("true",))
+                    for bi, bs in bss.items()}
+        d, m = eval_node(tree, args, layout.nrows_padded, self.device)
+        d_np, m_np = self._download(d, m, cand, has_maybe,
+                                    layout.nrows_padded)
         return settle_maybe(f, bss, layout, d_np, m_np)
+
+    # ---- the per-leaf path of a tree the planner declines ----
+
+    def _run_leaves(self, f, part, bss: dict):
+        """(block idx -> bitmap, whether a leaf ran on the card)."""
+        walk = _LeafWalk(self, part, bss)
+        care = {bi: np.ones(bs.nrows, dtype=bool) for bi, bs in bss.items()}
+        return walk.eval(f, care), walk.on_card
+
+    # ---- stats ----
+
+    def _reduce(self, asm: AxesAssembly, spec: StatsSpec, mask) -> list:
+        """Partials of the rows of `mask` (bool[RLp] on the card): one
+        count launch, or one value-reduction call for all value
+        columns."""
+        rlp = mask.shape[0]
+        if asm.axes:
+            ids = combine_ids([a[1] for a in asm.axes], asm.strides)
+        else:
+            ids = torch.zeros(rlp, dtype=torch.int32, device=self.device)
+        stats_np = {}
+        if spec.value_fields:
+            packed = stats_values(
+                [asm.numerics[fld].values for fld in spec.value_fields],
+                ids, mask, asm.nb).cpu()
+            for fld, row in zip(spec.value_fields, packed):
+                cnt, sums, mn, mx = split_values(row, asm.nb)
+                counts = cnt.numpy()
+                stats_np[fld] = (sums.numpy(), mn.numpy(), mx.numpy())
+        else:
+            counts = stats_count_seg(None, ids, mask, 1, asm.nb).cpu() \
+                .numpy()
+        return self._partials(asm, counts, stats_np)
 
     def run_part_stats(self, f, part, bss: dict, spec: StatsSpec):
         """(bitmaps, handled, partials): the filter and the stats of one
@@ -380,7 +437,7 @@ class TorchBatchRunner:
             return self.run_part(f, part, bss), set(), []
         prog = self._program(f, part, bss)
         if prog is None:
-            return self._host(f, bss), set(), []
+            return self._run_part_stats_unfused(f, part, bss, spec, asm)
         tree, args, layout, has_maybe, cand = prog
         self._count_device_part(layout)
         handled = set(bss)
@@ -388,28 +445,109 @@ class TorchBatchRunner:
             return {}, handled, []
         rlp = layout.nrows_padded
         d, m = eval_node(tree, args, rlp, self.device)
-        mask = d & cand
-        if asm.axes:
-            ids = combine_ids([a[1] for a in asm.axes], asm.strides)
-        else:
-            ids = torch.zeros(rlp, dtype=torch.int32, device=self.device)
-        if spec.value_fields:
-            packed = stats_values(
-                [asm.numerics[fld].values for fld in spec.value_fields],
-                ids, mask, asm.nb).cpu()
-            stats_np = {}
-            for fld, row in zip(spec.value_fields, packed):
-                cnt, sums, mn, mx = split_values(row, asm.nb)
-                counts = cnt.numpy()
-                stats_np[fld] = (sums.numpy(), mn.numpy(), mx.numpy())
-        else:
-            counts = stats_count_seg(None, ids, mask, 1, asm.nb).cpu() \
-                .numpy()
-            stats_np = {}
-        partials = self._partials(asm, counts, stats_np)
+        partials = self._reduce(asm, spec, d & cand)
         if has_maybe and m is not None:
             m_np = np.unpackbits(packbits(m & cand).cpu().numpy())[:rlp] \
                 .astype(bool)
             self.stats_counters["maybe_rows"] += int(m_np.sum())
             partials.extend(residue_partials(f, bss, spec, layout, m_np))
         return {}, handled, partials
+
+    def _run_part_stats_unfused(self, f, part, bss: dict,
+                                spec: StatsSpec, asm: AxesAssembly):
+        """A declined tree's stats: the per-leaf bitmaps uploaded as one
+        row mask, reduced by the same launch as the fused path; under
+        `stats_host_threshold` matched rows the host pipe takes them."""
+        bms, on_card = self._run_leaves(f, part, bss)
+        layout = self.layout(part)
+        handled = {bi for bi in bss
+                   if all(bi in el for el in asm.eligibility)}
+        mask = np.zeros(layout.nrows_padded, dtype=bool)
+        matched = 0
+        for bi in handled:
+            bm = bms[bi]
+            if bm.any():
+                start = layout.starts[bi]
+                mask[start:start + bm.shape[0]] = bm
+                matched += int(bm.sum())
+        partials = []
+        if matched < self.stats_host_threshold:
+            if matched:
+                handled = set()
+        else:
+            on_card = True
+            partials = self._reduce(asm, spec, self.put(mask))
+        if on_card:
+            self._count_device_part(layout)
+        else:
+            self.stats_counters["host_parts"] += 1
+        return bms, handled, partials
+
+
+class _LeafWalk:
+    """One part's filter tree walked leaf by leaf.  `eval(f, care)`
+    returns, per block of `care` (block idx -> bool rows whose answer is
+    still open), the filter's bitmap, exact on those rows and False
+    elsewhere: AND narrows the open rows to those still true, OR to
+    those not yet true, and a block leaves the walk once none are open."""
+
+    def __init__(self, runner: TorchBatchRunner, part, bss: dict):
+        self.runner = runner
+        self.part = part
+        self.bss = bss
+        self.layout = runner.layout(part)
+        self.on_card = False
+
+    def eval(self, f, care: dict) -> dict:
+        if isinstance(f, F.FilterAnd):
+            acc = {bi: c.copy() for bi, c in care.items()}
+            live = [bi for bi in acc if acc[bi].any()]
+            for sub in f.filters:
+                if not live:
+                    break
+                got = self.eval(sub, {bi: acc[bi] for bi in live})
+                for bi in live:
+                    acc[bi] &= got[bi]
+                live = [bi for bi in live if acc[bi].any()]
+            return acc
+        if isinstance(f, F.FilterOr):
+            acc = {bi: np.zeros_like(c) for bi, c in care.items()}
+            open_ = {bi: c for bi, c in care.items() if c.any()}
+            for sub in f.filters:
+                if not open_:
+                    break
+                got = self.eval(sub, open_)
+                for bi, c in open_.items():
+                    acc[bi] |= got[bi]
+                open_ = {bi: care[bi] & ~acc[bi] for bi in open_}
+                open_ = {bi: c for bi, c in open_.items() if c.any()}
+            return acc
+        if isinstance(f, F.FilterNot):
+            inner = self.eval(f.inner, care)
+            return {bi: c & ~inner[bi] for bi, c in care.items()}
+        return self._leaf(f, care)
+
+    def _leaf(self, f, care: dict) -> dict:
+        r = self.runner
+        bss = {bi: self.bss[bi] for bi in care}
+        planner = _Planner(r, self.part, bss, self.layout)
+        try:
+            tree = planner.plan(f)
+        except _NoFuse:
+            r.stats_counters["cpu_fallbacks"] += 1
+            out = {}
+            for bi, c in care.items():
+                bm = c.copy()
+                if bm.any():
+                    f.apply_to_block(bss[bi], bm)
+                out[bi] = bm
+            return out
+        self.on_card = True
+        if tree in (("true",), ("false",)):
+            return {bi: c & (tree == ("true",)) for bi, c in care.items()}
+        rlp = self.layout.nrows_padded
+        d, m = eval_node(tree, planner.args, rlp, r.device)
+        cand = r._rows_mask(self.part, self.layout, care)
+        d_np, m_np = r._download(d, m, cand, planner.has_maybe, rlp)
+        out = settle_maybe(f, bss, self.layout, d_np, m_np)
+        return {bi: bm & care[bi] for bi, bm in out.items()}

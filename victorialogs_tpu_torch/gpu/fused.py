@@ -5,12 +5,16 @@ part and emits a small program plus the device tensors it reads:
 
 - leaves become `scan` (kernel 1 over the part's staged column), `pair`
   (the regexp `A.*B`: kernels.match_pair, truncated rows applied in its
-  launch), `time` (timestamp compare),
-  `maskleaf` (a per-block-constant filter such as `_stream:{...}`
-  expanded to rows), `nonempty` (a length compare) and `ovfmaybe`; a
-  regexp that is neither one literal nor a pair becomes `verify` over
-  the AND of one substring scan per mandatory literal run: no row is
-  definite, the candidates are maybe rows;
+  launch), `time` (timestamp compare), `maskleaf` (a per-block-constant
+  filter: `_stream:{...}`, `_stream_id:`, `value_type()`, expanded to
+  rows), `nonempty` and `empty` (length compares), `numrange` (a range
+  over an int column's staged uint32 offsets, compared unsigned),
+  `lenrange` (len_range over the staged lengths) and `ovfmaybe`;
+  `in(...)` is an OR of exact scans, `contains_all`/`contains_any` an
+  AND/OR of phrase scans; a regexp that is neither one literal nor a
+  pair, and a `seq()` of two or more phrases, become `verify` over the
+  AND of their scans: no row is definite, the candidates are maybe
+  rows;
 - a bloom-prunable scan whose required tokens rule out some (not all)
   candidate blocks becomes a `gscan` node: one launch that probes each
   block's packed bloom plane on the card and scans only the rows of the
@@ -25,16 +29,18 @@ part and emits a small program plus the device tensors it reads:
 `eval_node` evaluates the program three-valued: every node yields
 (definite, maybe) row masks.  `maybe` collects rows whose staged value
 was truncated (longer than the staged width), a pair's rows holding a
-newline, a verify leaf's candidates and, for an any-case scan, the rows
+newline, a verify leaf's candidates, for an any-case scan the rows
 holding a byte >= 0x80 (Unicode lowering can map non-ASCII onto ASCII,
-U+212A -> 'k', which the byte fold cannot see): the host settles them
-with the filter's own predicate, so results equal the host executor's.
-Filters the planner cannot express raise `_NoFuse` and the runner
-evaluates the part on the host.
+U+212A -> 'k', which the byte fold cannot see) and for `lenrange` the
+multibyte rows whose byte length leaves the code-point count open: the
+host settles them with the filter's own predicate, so results equal the
+host executor's.  Filters the planner cannot express raise `_NoFuse`;
+the runner then walks the tree leaf by leaf (gpu/batch.py).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -166,6 +172,7 @@ class ScanOp:
     starts_tok: bool = False
     ends_tok: bool = False
     match_nonempty: bool = False   # prefix "": any non-empty value
+    match_empty: bool = False      # contains "": only the empty value
     # ASCII case fold of the data (pattern pre-lowered); rows holding a
     # byte >= 0x80 are maybe rows
     fold: bool = False
@@ -191,6 +198,25 @@ def device_plan(f) -> LeafPlan | None:
         return s.isascii() and 0 < len(s) <= K.MAX_PATTERN_LEN
 
     fld = F.canonical_field(f.field)
+    if isinstance(f, F.FilterSequence):
+        if not f.phrases or not all(ok(p) for p in f.phrases):
+            return None
+        # each phrase at word boundaries is exact per phrase; the order
+        # of two or more is the host's to check
+        return LeafPlan(f, fld, [ScanOp(p.encode(), K.MODE_PHRASE,
+                                        is_word_char(p[0]),
+                                        is_word_char(p[-1]))
+                                 for p in f.phrases], "and", f._tokens(),
+                        verify=len(f.phrases) > 1)
+    if isinstance(f, (F.FilterContainsAll, F.FilterContainsAny)):
+        if not f.values or any(p and not ok(p) for p in f.values):
+            return None
+        every = isinstance(f, F.FilterContainsAll)
+        return LeafPlan(f, fld, [
+            ScanOp(p.encode(), K.MODE_PHRASE, is_word_char(p[0]),
+                   is_word_char(p[-1])) if p else
+            ScanOp(b"", 0, match_empty=True) for p in f.values],
+            "and" if every else "or", f._tokens() if every else [])
     if isinstance(f, F.FilterPrefix) and not f.prefix or \
             isinstance(f, F.FilterAnyCasePrefix) and not f._lower:
         return LeafPlan(f, fld, [ScanOp(b"", 0, match_nonempty=True)],
@@ -266,10 +292,19 @@ class _Planner:
             return ("not", inner)
         if isinstance(f, F.FilterNoop):
             return ("true",)
+        if isinstance(f, F.FilterNone):
+            return ("false",)
         if isinstance(f, F.FilterTime):
             return self._time_leaf(f)
-        if isinstance(f, F.FilterStream):
-            return self._stream_leaf(f)
+        if isinstance(f, (F.FilterStream, F.FilterStreamID,
+                          F.FilterValueType)):
+            return self._block_uniform_leaf(f)
+        if isinstance(f, F.FilterRange):
+            return self._numrange_leaf(f)
+        if isinstance(f, F.FilterIn):
+            return self._in_leaf(f)
+        if isinstance(f, F.FilterLenRange):
+            return self._lenrange_leaf(f)
         return self._scan_leaf(f)
 
     def _time_leaf(self, f: F.FilterTime):
@@ -280,14 +315,20 @@ class _Planner:
         ts = self.runner.stage_timestamps(self.part, self.layout)
         return ("time", self.arg(ts), f.min_ts, f.max_ts)
 
-    def _stream_leaf(self, f: F.FilterStream):
-        """Per-block constant: uniform over the candidates -> a
-        constant, mixed -> a row mask built from block ranges."""
+    def _block_uniform_leaf(self, f):
+        """A per-block constant (`_stream:{...}`, `_stream_id:`,
+        `value_type()`): uniform over the candidates -> a constant,
+        mixed -> a row mask built from block ranges."""
         truths = {}
         for bi, bs in self.bss.items():
-            ctx = bs.ctx
-            truths[bi] = ctx is None or bs.stream_id in f.resolve(
-                ctx.partition, ctx.tenants)
+            if isinstance(f, F.FilterStream):
+                ctx = bs.ctx
+                truths[bi] = ctx is None or bs.stream_id in f.resolve(
+                    ctx.partition, ctx.tenants)
+            elif isinstance(f, F.FilterValueType):
+                truths[bi] = f.matches(bs)
+            else:
+                truths[bi] = bs.stream_id.as_string() in f._set
         vals = set(truths.values())
         if vals == {True}:
             return ("true",)
@@ -299,6 +340,81 @@ class _Planner:
                 s = self.layout.starts[bi]
                 m[s:s + self.part.block_rows(bi)] = True
         return ("maskleaf", self.arg(self.runner.put(m)))
+
+    def _numrange_leaf(self, f: F.FilterRange):
+        """A range over an int column: its staged uint32 offsets from
+        the part minimum against the bounds made integer (the ceil of
+        the lower, the floor of the upper, an infinite bound saturating
+        outward).  Declines unless every candidate block is int-typed
+        and the column stages (range below 2**32, magnitudes the stats
+        path accepts)."""
+        fld = F.canonical_field(f.field)
+        if math.isnan(f.min_value) or math.isnan(f.max_value):
+            raise _NoFuse("numrange-nan")
+        sn = self.runner.stage_numeric(self.part, fld, self.layout)
+        if sn is None or any(bi not in sn.eligible for bi in self.bss):
+            raise _NoFuse("numrange")
+        lo = (-(1 << 62) if f.min_value < 0 else 1 << 62) \
+            if math.isinf(f.min_value) else math.ceil(f.min_value)
+        hi = (1 << 62 if f.max_value > 0 else -(1 << 62)) \
+            if math.isinf(f.max_value) else math.floor(f.max_value)
+        lo_off, hi_off = lo - sn.vmin, hi - sn.vmin
+        if lo_off > hi_off or hi_off < 0 or lo_off >= 1 << 32:
+            return ("false",)
+        return ("numrange", self.arg(sn.values), max(0, lo_off),
+                min(hi_off, (1 << 32) - 1))
+
+    def _lenrange_leaf(self, f: F.FilterLenRange):
+        """len_range(lo, hi) over the staged byte lengths, which equal
+        code-point counts on ASCII rows.  A multibyte row (bytes >= 0x80)
+        is a maybe row when its byte length lies in [lo, 4*hi]; a
+        truncated row is a maybe row unless even W-1 bytes exceed
+        4*hi."""
+        if f.max_len < max(0, f.min_len):
+            return ("false",)
+        fld = F.canonical_field(f.field)
+        if fld == "_time":
+            raise _NoFuse("_time-as-string")
+        ff, _ri, li, oi = self.field_slot(fld)
+        mb = self.runner.stage_multibyte(self.part, fld, self.layout)
+        mi = -1 if mb is None else self.arg(mb)
+        imax = (1 << 31) - 1
+        a = min(max(0, f.min_len), imax)
+        b = min(f.max_len, imax)
+        b4 = min(4 * f.max_len, imax)
+        if ff.width - 1 > b4:
+            oi = -1
+        if mi >= 0 or oi >= 0:
+            self.has_maybe = True
+        return ("lenrange", li, oi, mi, a, b, b4)
+
+    def _in_leaf(self, f: F.FilterIn):
+        """`in(a, b, ...)`: an OR of exact scans over the staged column
+        (dict, const and stream-tag blocks materialized), an empty value
+        an `empty` node; at most 16 ASCII values."""
+        if f.subquery is not None and not f.values:
+            raise _NoFuse("in-subquery")
+        if len(f.values) > 16:
+            raise _NoFuse("in-cardinality")
+        fld = F.canonical_field(f.field)
+        if fld == "_time":
+            raise _NoFuse("_time-as-string")
+        ff, ri, li, oi = self.field_slot(fld)
+        kids = []
+        for v in f.values:
+            if not v:
+                kids.append(("empty", li))
+                continue
+            if not v.isascii() or len(v) > K.MAX_PATTERN_LEN:
+                raise _NoFuse("in-value")
+            if len(v) >= ff.width:
+                kids.append(self._ovf_only(oi))
+                continue
+            if oi >= 0:
+                self.has_maybe = True
+            kids.append(("scan", ri, li, oi, -1, v.encode(), K.MODE_EXACT,
+                         False, False, False))
+        return _combine("or", kids)
 
     def _scan_leaf(self, f):
         plan = device_plan(f)
@@ -336,6 +452,10 @@ class _Planner:
         for op in plan.ops:
             if op.match_nonempty:
                 kids.append(("nonempty", li))
+                continue
+            if op.match_empty:
+                # a truncated row is longer than W-1 > 0: never empty
+                kids.append(("empty", li))
                 continue
             if len(op.pattern) >= ff.width:
                 kids.append(self._ovf_only(oi))
@@ -395,6 +515,9 @@ def _combine(op, kids):
     return flat[0] if len(flat) == 1 else (op, tuple(flat))
 
 
+_SIGN = -(1 << 31)     # the int32 sign bit
+
+
 def eval_node(node, args, rlp: int, device):
     """(definite, maybe) bool[rlp] row masks; maybe None means none."""
     kind = node[0]
@@ -406,6 +529,26 @@ def eval_node(node, args, rlp: int, device):
         return args[node[1]], None
     if kind == "nonempty":
         return args[node[1]] > 0, None
+    if kind == "empty":
+        return args[node[1]] == 0, None
+    if kind == "numrange":
+        # uint32 offsets held as int32 bits: flipping the sign bit of
+        # both sides keeps unsigned order in a signed compare
+        _, vi, lo, hi = node
+        v = args[vi] ^ _SIGN
+        return (v >= lo + _SIGN) & (v <= hi + _SIGN), None
+    if kind == "lenrange":
+        _, li, oi, mi, a, b, b4 = node
+        lens = args[li]
+        d = (lens >= a) & (lens <= b)
+        may = None
+        if mi >= 0:
+            may = args[mi] & (lens >= a) & (lens <= b4)
+        if oi >= 0:
+            may = args[oi] if may is None else may | args[oi]
+        if may is None:
+            return d, None
+        return d & ~may, may
     if kind == "ovfmaybe":
         return torch.zeros(rlp, dtype=torch.bool, device=device), \
             args[node[1]]

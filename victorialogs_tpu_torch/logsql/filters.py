@@ -4,7 +4,9 @@ Each node ANDs itself into a numpy bool bitmap over one storage block
 (`apply_to_block`).  Value filters first probe the column's token bloom
 (a required token absent from the bloom kills the block), then scan:
 a VT_STRING column is matched over its byte arena in one pass
-(`_arena_scan`), every other encoding through the per-value predicate,
+(`_arena_scan`; `contains_all`, `contains_any` and `seq` AND or OR one
+pass a phrase, `seq` checking the order of its survivors with its
+predicate), every other encoding through the per-value predicate,
 evaluated once per dict entry or const.  The predicates in
 logsql/matchers.py are the semantics both paths and the device scan
 must reproduce.
@@ -18,13 +20,17 @@ per row from A's first and B's last occurrence (`_pair_rows`, the
 device pair kernel's predicate), only rows holding a newline going to
 `re.search`.
 
-The slice supports phrase, prefix, exact, exact-prefix, any-case,
-regexp, `_time:` and `_stream:` leaves under and/or/not; the parser
-raises NotImplementedError for every other filter.
+Numeric filters (`range`, `>`/`<`, `ipv4_range`) compare a typed
+column's numbers at once, after its header's min/max rules the block
+out or not; `len_range` counts a string column's code points from its
+arena.  Per-block constant filters (`_stream:{...}`, `_stream_id:`,
+`value_type()`) test the block once; `day_range`/`week_range` and the
+cross-field filters (`eq_field`, `le_field`, `lt_field`) go row by row.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 
@@ -32,11 +38,19 @@ import numpy as np
 
 from ..engine.block_search import BlockSearch, visit_values
 from ..storage.bloom import bloom_contains_all
-from ..storage.values_encoder import VT_STRING
+from ..storage.values_encoder import (VT_FLOAT64, VT_INT64, VT_IPV4,
+                                      VT_STRING, VT_UINT8, VT_UINT16,
+                                      VT_UINT32, VT_UINT64)
 from ..utils.hashing import cached_token_hashes
 from ..utils.tokenizer import is_word_char_table, tokenize_string
 from .matchers import (is_word_char, match_any_case_phrase,
-                       match_any_case_prefix, match_phrase, match_prefix)
+                       match_any_case_prefix, match_exact_prefix,
+                       match_ipv4_range, match_len_range, match_phrase,
+                       match_prefix, match_range, match_sequence,
+                       match_string_range, match_value_type, parse_number)
+
+_NUMERIC_VTS = (VT_UINT8, VT_UINT16, VT_UINT32, VT_UINT64, VT_INT64,
+                VT_FLOAT64)
 
 # scan modes of the host arena scan and the device scan (gpu/kernels.py)
 MODE_PHRASE = 0        # substring with word boundaries on both sides
@@ -129,9 +143,35 @@ def _rows_holding(arena: np.ndarray, offs: np.ndarray, ends: np.ndarray,
                   byte_mask: np.ndarray) -> np.ndarray:
     """bool[R]: the row holds a byte that `byte_mask` (bool per arena
     byte) marks."""
+    return _rows_holding_count(arena, offs, ends, byte_mask) > 0
+
+
+def _rows_holding_count(arena: np.ndarray, offs: np.ndarray,
+                        ends: np.ndarray, byte_mask: np.ndarray
+                        ) -> np.ndarray:
+    """int64[R]: how many bytes of each row `byte_mask` marks."""
     cs = np.zeros(arena.shape[0] + 1, dtype=np.int64)
     np.cumsum(byte_mask, out=cs[1:])
-    return cs[ends] > cs[offs]
+    return cs[ends] - cs[offs]
+
+
+def _arena_compare(col, rows: np.ndarray, ref: bytes) -> np.ndarray:
+    """int[len(rows)]: the sign of each listed VT_STRING row's bytes
+    compared with `ref` in lexicographic order (a proper prefix sorts
+    first: bytes past a row's end read as -1)."""
+    k = len(ref) + 1
+    j = np.arange(k)
+    inside = j < col.lengths[rows][:, None]
+    mat = np.full((rows.shape[0], k), -1, dtype=np.int16)
+    if col.arena.size:
+        pos = np.minimum(col.offsets[rows].astype(np.int64)[:, None] + j,
+                         col.arena.size - 1)
+        mat = np.where(inside, col.arena[pos].astype(np.int16), mat)
+    want = np.full(k, -1, dtype=np.int16)
+    want[:len(ref)] = np.frombuffer(ref, dtype=np.uint8)
+    d = mat - want
+    # the first differing byte decides; none differs: d[:, 0] is 0
+    return np.sign(d[np.arange(rows.shape[0]), (d != 0).argmax(axis=1)])
 
 
 def _pair_rows(col, a: bytes, b: bytes):
@@ -202,17 +242,36 @@ class _ValuePredFilter(Filter):
         arena scan, or None when only the predicate applies."""
         return None
 
+    def multi_scan_spec(self) -> tuple | None:
+        """(scan specs, "and" | "or", verify) of a filter that is several
+        arena scans combined, `verify` asking the predicate to settle
+        the survivors; None when only the predicate applies."""
+        return None
+
     def apply_to_block(self, bs: BlockSearch, bm: np.ndarray) -> None:
         fld = canonical_field(self.field)
         if _bloom_prunes(bs, fld, self):
             bm[:] = False
             return
         spec = self.scan_spec()
-        col = _scan_column(bs, fld) if spec is not None else None
-        if col is not None:
+        multi = self.multi_scan_spec() if spec is None else None
+        col = _scan_column(bs, fld) if spec or multi else None
+        if col is None:
+            visit_values(bs, fld, bm, self._pred)
+        elif spec is not None:
             bm &= _arena_scan(col, *spec)
-            return
-        visit_values(bs, fld, bm, self._pred)
+        else:
+            specs, combine, verify = multi
+            acc = None
+            for sp in specs:
+                hit = _arena_scan(col, *sp)
+                acc = hit if acc is None else \
+                    acc & hit if combine == "and" else acc | hit
+                if combine == "and" and not (acc & bm).any():
+                    break
+            bm &= acc
+            if verify:
+                _verify_rows(col, bm, self._pred)
 
 
 @dataclass(repr=False)
@@ -274,6 +333,17 @@ class FilterNoop(Filter):
 
     def to_string(self):
         return "*"
+
+
+@dataclass(repr=False)
+class FilterNone(Filter):
+    """Matches nothing."""
+
+    def apply_to_block(self, bs, bm):
+        bm[:] = False
+
+    def to_string(self):
+        return "_none_"
 
 
 @dataclass(repr=False)
@@ -339,6 +409,16 @@ class FilterExact(_ValuePredFilter):
     def _tokens(self):
         return tokenize_string(self.value)
 
+    def apply_to_block(self, bs, bm):
+        # a numeric column holds only numbers between its min and max
+        meta = bs.column_meta(canonical_field(self.field))
+        if meta is not None and meta["t"] in _NUMERIC_VTS:
+            v = parse_number(self.value)
+            if math.isnan(v) or not meta["min"] <= v <= meta["max"]:
+                bm[:] = False
+                return
+        super().apply_to_block(bs, bm)
+
     def to_string(self):
         return f"{_q(self.field)}={quote_str(self.value)}"
 
@@ -349,7 +429,7 @@ class FilterExactPrefix(_ValuePredFilter):
     prefix: str
 
     def _pred(self, v):
-        return v.startswith(self.prefix)
+        return match_exact_prefix(v, self.prefix)
 
     def scan_spec(self):
         if not self.prefix:
@@ -609,6 +689,321 @@ def _flush_literal(cur, literals, drop_last, final=False):
     return []
 
 
+def _phrase_specs(phrases: list) -> list | None:
+    """One MODE_PHRASE arena scan a phrase; None when one is empty (the
+    predicate keeps its own semantics there)."""
+    if not phrases or not all(phrases):
+        return None
+    return [(p.encode("utf-8"), MODE_PHRASE, is_word_char(p[0]),
+             is_word_char(p[-1])) for p in phrases]
+
+
+# ---------------- multi-value filters ----------------
+
+@dataclass(repr=False)
+class FilterIn(_ValuePredFilter):
+    """`in(a, b, ...)`: the whole value equals one of them; `subquery`
+    (a parsed Query) supplies the values once init_subqueries has run
+    it."""
+
+    field: str
+    values: list
+    subquery: object = None
+
+    def __post_init__(self):
+        self._set = set(self.values)
+
+    def set_values(self, values):
+        self.values = list(values)
+        self._set = set(self.values)
+
+    def _pred(self, v):
+        return v in self._set
+
+    def to_string(self):
+        if self.subquery is not None:
+            return f"{_q(self.field)}in({self.subquery.to_string()})"
+        return (f"{_q(self.field)}in("
+                f"{','.join(quote_str(v) for v in self.values)})")
+
+
+@dataclass(repr=False)
+class FilterContainsAll(_ValuePredFilter):
+    """`contains_all(a, b, ...)`: every phrase occurs."""
+
+    field: str
+    values: list
+    subquery: object = None
+
+    def set_values(self, values):
+        self.values = list(values)
+
+    def _pred(self, v):
+        return all(match_phrase(v, p) for p in self.values)
+
+    def multi_scan_spec(self):
+        specs = _phrase_specs(self.values)
+        return None if specs is None else (specs, "and", False)
+
+    def _tokens(self):
+        return [t for p in self.values for t in tokenize_string(p)]
+
+    def to_string(self):
+        return (f"{_q(self.field)}contains_all("
+                f"{','.join(quote_str(v) for v in self.values)})")
+
+
+@dataclass(repr=False)
+class FilterContainsAny(_ValuePredFilter):
+    """`contains_any(a, b, ...)`: some phrase occurs."""
+
+    field: str
+    values: list
+    subquery: object = None
+
+    def set_values(self, values):
+        self.values = list(values)
+
+    def _pred(self, v):
+        return any(match_phrase(v, p) for p in self.values)
+
+    def multi_scan_spec(self):
+        specs = _phrase_specs(self.values)
+        return None if specs is None else (specs, "or", False)
+
+    def to_string(self):
+        return (f"{_q(self.field)}contains_any("
+                f"{','.join(quote_str(v) for v in self.values)})")
+
+
+@dataclass(repr=False)
+class FilterSequence(_ValuePredFilter):
+    """`seq(a, b, ...)`: the phrases occur in this order, each at word
+    boundaries; their scans prefilter and, for two or more, the
+    predicate checks the order."""
+
+    field: str
+    phrases: list
+
+    def _pred(self, v):
+        return match_sequence(v, self.phrases)
+
+    def multi_scan_spec(self):
+        specs = _phrase_specs(self.phrases)
+        return None if specs is None else \
+            (specs, "and", len(self.phrases) > 1)
+
+    def _tokens(self):
+        return [t for p in self.phrases for t in tokenize_string(p)]
+
+    def to_string(self):
+        return (f"{_q(self.field)}seq("
+                f"{','.join(quote_str(v) for v in self.phrases)})")
+
+
+# ---------------- range / numeric filters ----------------
+
+@dataclass(repr=False)
+class FilterRange(_ValuePredFilter):
+    """`range[lo, hi]`, `>x`, `<=x`...: the value as a number inside
+    inclusive bounds (the parser moves exclusive bounds to the next
+    float)."""
+
+    field: str
+    min_value: float
+    max_value: float
+    repr_str: str = ""
+
+    def _pred(self, v):
+        return match_range(v, self.min_value, self.max_value)
+
+    def apply_to_block(self, bs, bm):
+        fld = canonical_field(self.field)
+        meta = bs.column_meta(fld)
+        if meta is None or meta["t"] not in _NUMERIC_VTS:
+            super().apply_to_block(bs, bm)
+            return
+        if meta["max"] < self.min_value or meta["min"] > self.max_value:
+            bm[:] = False
+            return
+        nums = bs.column(fld).nums
+        if nums.dtype == np.uint64:
+            # integer-exact bounds: the ceil of the lower, the floor of
+            # the upper (an infinite bound saturates)
+            lo = 0 if self.min_value <= 0 else \
+                2**64 - 1 if math.isinf(self.min_value) else \
+                min(math.ceil(self.min_value), 2**64 - 1)
+            hi = -1 if self.max_value < 0 else \
+                2**64 - 1 if math.isinf(self.max_value) else \
+                min(math.floor(self.max_value), 2**64 - 1)
+            if lo > hi:
+                bm[:] = False
+                return
+            bm &= (nums >= np.uint64(lo)) & (nums <= np.uint64(hi))
+        else:
+            bm &= (nums >= self.min_value) & (nums <= self.max_value)
+
+    def to_string(self):
+        if self.repr_str:
+            return f"{_q(self.field)}{self.repr_str}"
+        return f"{_q(self.field)}range[{self.min_value},{self.max_value}]"
+
+
+@dataclass(repr=False)
+class FilterStringRange(_ValuePredFilter):
+    """`string_range(lo, hi)`: lo <= value < hi."""
+
+    field: str
+    min_value: str
+    max_value: str
+    repr_str: str = ""
+
+    def _pred(self, v):
+        return match_string_range(v, self.min_value, self.max_value)
+
+    def apply_to_block(self, bs, bm):
+        col = _scan_column(bs, canonical_field(self.field))
+        if col is None:
+            super().apply_to_block(bs, bm)
+            return
+        # UTF-8 byte order is code-point order, which str comparison is
+        rows = np.nonzero(bm)[0]
+        bm[rows] = \
+            (_arena_compare(col, rows, self.min_value.encode()) >= 0) & \
+            (_arena_compare(col, rows, self.max_value.encode()) < 0)
+
+    def to_string(self):
+        if self.repr_str:
+            return f"{_q(self.field)}{self.repr_str}"
+        return (f"{_q(self.field)}string_range({quote_str(self.min_value)},"
+                f"{quote_str(self.max_value)})")
+
+
+@dataclass(repr=False)
+class FilterLenRange(_ValuePredFilter):
+    """`len_range(lo, hi)`: the value's length in code points.  A
+    VT_STRING column counts the arena bytes that are not UTF-8
+    continuation bytes."""
+
+    field: str
+    min_len: int
+    max_len: int
+
+    def _pred(self, v):
+        return match_len_range(v, self.min_len, self.max_len)
+
+    def apply_to_block(self, bs, bm):
+        col = _scan_column(bs, canonical_field(self.field))
+        if col is None:
+            super().apply_to_block(bs, bm)
+            return
+        offs = col.offsets.astype(np.int64)
+        cont = _rows_holding_count(col.arena, offs, offs + col.lengths,
+                                   (col.arena & 0xC0) == 0x80)
+        runes = col.lengths - cont
+        bm &= (runes >= self.min_len) & (runes <= self.max_len)
+
+    def to_string(self):
+        return f"{_q(self.field)}len_range({self.min_len},{self.max_len})"
+
+
+@dataclass(repr=False)
+class FilterIPv4Range(_ValuePredFilter):
+    """`ipv4_range(lo, hi)` or `ipv4_range(cidr)`: the value as a
+    dotted-quad address inside inclusive bounds."""
+
+    field: str
+    min_value: int
+    max_value: int
+
+    def _pred(self, v):
+        return match_ipv4_range(v, self.min_value, self.max_value)
+
+    def apply_to_block(self, bs, bm):
+        fld = canonical_field(self.field)
+        meta = bs.column_meta(fld)
+        if meta is not None and meta["t"] == VT_IPV4:
+            nums = bs.column(fld).nums
+            bm &= (nums >= np.uint32(self.min_value)) & \
+                (nums <= np.uint32(self.max_value))
+            return
+        super().apply_to_block(bs, bm)
+
+    def to_string(self):
+        def ip(v):
+            return f"{(v >> 24) & 255}.{(v >> 16) & 255}." \
+                   f"{(v >> 8) & 255}.{v & 255}"
+        return (f"{_q(self.field)}ipv4_range({ip(self.min_value)},"
+                f"{ip(self.max_value)})")
+
+
+@dataclass(repr=False)
+class FilterValueType(Filter):
+    """`value_type(name)`: the block stores the column in this encoding
+    (`BlockSearch.value_type_name`)."""
+
+    field: str
+    type_name: str
+
+    def matches(self, bs) -> bool:
+        return match_value_type(bs.value_type_name(
+            canonical_field(self.field)), self.type_name)
+
+    def apply_to_block(self, bs, bm):
+        if not self.matches(bs):
+            bm[:] = False
+
+    def to_string(self):
+        return f"{_q(self.field)}value_type({self.type_name})"
+
+
+# ---------------- cross-field filters ----------------
+
+@dataclass(repr=False)
+class FilterEqField(Filter):
+    """`eq_field(other)`: the two fields hold equal values."""
+
+    field: str
+    other: str
+
+    def apply_to_block(self, bs, bm):
+        a = bs.values(canonical_field(self.field))
+        b = bs.values(self.other)
+        for i in np.nonzero(bm)[0].tolist():
+            if a[i] != b[i]:
+                bm[i] = False
+
+    def to_string(self):
+        return f"{_q(self.field)}eq_field({self.other})"
+
+
+@dataclass(repr=False)
+class FilterLeField(Filter):
+    """`le_field(other)` (`lt_field` when strict): numbers compared as
+    numbers, anything else as strings."""
+
+    field: str
+    other: str
+    strict: bool = False
+
+    def _cmp(self, x: str, y: str) -> bool:
+        a, b = parse_number(x), parse_number(y)
+        if not (math.isnan(a) or math.isnan(b)):
+            return a < b if self.strict else a <= b
+        return x < y if self.strict else x <= y
+
+    def apply_to_block(self, bs, bm):
+        a = bs.values(canonical_field(self.field))
+        b = bs.values(self.other)
+        for i in np.nonzero(bm)[0].tolist():
+            if not self._cmp(a[i], b[i]):
+                bm[i] = False
+
+    def to_string(self):
+        fn = "lt_field" if self.strict else "le_field"
+        return f"{_q(self.field)}{fn}({self.other})"
+
+
 @dataclass(repr=False)
 class FilterTime(Filter):
     min_ts: int                      # inclusive, ns
@@ -652,3 +1047,64 @@ class FilterStream(Filter):
 
     def to_string(self):
         return self.stream_filter.to_string()
+
+
+_NS_PER_DAY = 86400 * 1_000_000_000
+
+
+@dataclass(repr=False)
+class FilterDayRange(Filter):
+    """`_time:day_range[hh:mm, hh:mm]`: the time of day, inclusive
+    offsets into a day shifted by the `offset` modifier."""
+
+    start_offset_ns: int
+    end_offset_ns: int
+    tz_offset_ns: int = 0
+    repr_str: str = ""
+
+    def apply_to_block(self, bs, bm):
+        day_off = (bs.timestamps() + self.tz_offset_ns) % _NS_PER_DAY
+        bm &= (day_off >= self.start_offset_ns) & \
+            (day_off <= self.end_offset_ns)
+
+    def to_string(self):
+        return f"_time:day_range{self.repr_str}"
+
+
+@dataclass(repr=False)
+class FilterWeekRange(Filter):
+    """`_time:week_range[Mon, Fri]`: the weekday, 0 = Sunday to
+    6 = Saturday, inclusive."""
+
+    start_day: int
+    end_day: int
+    tz_offset_ns: int = 0
+    repr_str: str = ""
+
+    def apply_to_block(self, bs, bm):
+        # 1970-01-01 was a Thursday (4 with Sunday 0)
+        days = (bs.timestamps() + self.tz_offset_ns) // _NS_PER_DAY
+        wd = (days + 4) % 7
+        bm &= (wd >= self.start_day) & (wd <= self.end_day)
+
+    def to_string(self):
+        return f"_time:week_range{self.repr_str}"
+
+
+@dataclass(repr=False)
+class FilterStreamID(Filter):
+    """`_stream_id:<id>` or `_stream_id:in(<id>, ...)` (hex strings)."""
+
+    stream_ids: list
+
+    def __post_init__(self):
+        self._set = set(self.stream_ids)
+
+    def apply_to_block(self, bs, bm):
+        if bs.stream_id.as_string() not in self._set:
+            bm[:] = False
+
+    def to_string(self):
+        if len(self.stream_ids) == 1:
+            return f"_stream_id:{self.stream_ids[0]}"
+        return "_stream_id:in(" + ",".join(self.stream_ids) + ")"

@@ -1,40 +1,55 @@
-"""LogsQL parser for the slice: query -> (filter tree, pipes).
+"""LogsQL parser: query -> (options, filter tree, pipes).
 
 Implicit AND between adjacent filters, `or`/`and`/`not` (`!`, `-`),
 parentheses, `field:filter` scoping, compound phrases glued from
 adjacent unspaced tokens, `*`, `prefix*`, `=exact`, `=prefix*`,
-`~"regexp"`, `i(phrase)` and `i(prefix*)`, `{...}` stream filters,
-`_time:` filters and the trailing pipes.  Constructs outside the slice raise
+`~"regexp"`, the numeric comparisons `>`, `>=`, `<`, `<=`, the
+function filters (`in`, `contains_all`, `contains_any`, `seq`,
+`range`, `len_range`, `string_range`, `ipv4_range`, `value_type`,
+`eq_field`, `le_field`, `lt_field`, `exact`, `re`, `i`; `in` and
+`contains_*` also over a `(subquery | fields x)`), `{...}` stream
+filters, `_stream_id:`, `_time:` filters (ranges, durations, numeric
+unix bounds, `day_range`, `week_range`, `offset`), a leading
+`options(...)` and the trailing pipes.  Pipes outside the port raise
 NotImplementedError instead of parsing into something else.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field as dc_field
 
 from ..storage.stream_filter import StreamFilter, TagFilter
-from .duration import parse_duration, ts_bounds
+from .duration import NS, parse_duration, ts_bounds
 from .filters import (Filter, FilterAnd, FilterAnyCasePhrase,
-                      FilterAnyCasePrefix, FilterExact, FilterExactPrefix,
+                      FilterAnyCasePrefix, FilterContainsAll,
+                      FilterContainsAny, FilterDayRange, FilterEqField,
+                      FilterExact, FilterExactPrefix, FilterIn,
+                      FilterIPv4Range, FilterLeField, FilterLenRange,
                       FilterNoop, FilterNot, FilterOr, FilterPhrase,
-                      FilterPrefix, FilterRegexp, FilterStream, FilterTime)
+                      FilterPrefix, FilterRange, FilterRegexp,
+                      FilterSequence, FilterStream, FilterStreamID,
+                      FilterStringRange, FilterTime, FilterValueType,
+                      FilterWeekRange)
 from .lexer import Lexer
+from .matchers import parse_ipv4, parse_number
 from .pipes import ParseError, parse_pipes
 
 MAX_TS = (1 << 63) - 1
 MIN_TS = -(1 << 63)
 
-# function-style filters of the full language outside the slice (`i` is
-# in it)
-_FUNC_FILTERS = ("contains_all", "contains_any", "eq_field", "exact", "in",
-                 "ipv4_range", "le_field", "len_range", "lt_field", "range",
-                 "re", "seq", "string_range", "value_type")
+
+@dataclass
+class QueryOptions:
+    concurrency: int = 0
+    ignore_global_time_filter: bool = False
 
 
 @dataclass
 class Query:
     filter: Filter
     pipes: list = dc_field(default_factory=list)
+    opts: QueryOptions = dc_field(default_factory=QueryOptions)
     timestamp: int | None = None
 
     def to_string(self) -> str:
@@ -77,17 +92,57 @@ def _filter_time_range(f: Filter) -> tuple[int, int]:
 
 def parse_query(s: str, timestamp: int | None = None) -> Query:
     lex = Lexer(s, timestamp=timestamp)
-    if lex.is_keyword("options"):
-        raise NotImplementedError("query options")
+    q = _parse_query_internal(lex)
+    if not lex.is_end():
+        raise ParseError(f"unexpected trailing token {lex.token!r} "
+                         f"near ...{lex.context()}")
+    return q
+
+
+def parse_filter_string(s: str) -> Filter:
+    """A standalone filter expression (`extra_filters`)."""
+    lex = Lexer(s)
+    f = parse_filter_or(lex, "")
+    if not lex.is_end():
+        raise ParseError(f"unexpected trailing token {lex.token!r}")
+    return f
+
+
+def _parse_query_internal(lex: Lexer) -> Query:
+    opts = _parse_options(lex) if lex.is_keyword("options") else \
+        QueryOptions()
     f = parse_filter_or(lex, "")
     pipes = []
     if lex.is_keyword("|"):
         lex.next_token()
         pipes = parse_pipes(lex)
-    if not lex.is_end():
-        raise ParseError(f"unexpected trailing token {lex.token!r} "
-                         f"near ...{lex.context()}")
-    return Query(filter=f, pipes=pipes, timestamp=lex.timestamp)
+    return Query(filter=f, pipes=pipes, opts=opts, timestamp=lex.timestamp)
+
+
+def _parse_options(lex: Lexer) -> QueryOptions:
+    opts = QueryOptions()
+    lex.next_token()
+    if not lex.is_keyword("("):
+        raise ParseError("missing '(' after options")
+    lex.next_token()
+    while not lex.is_keyword(")"):
+        name = lex.token
+        lex.next_token()
+        if not lex.is_keyword("="):
+            raise ParseError(f"missing '=' after option {name!r}")
+        lex.next_token()
+        value = lex.token
+        lex.next_token()
+        if name == "concurrency":
+            opts.concurrency = int(value)
+        elif name == "ignore_global_time_filter":
+            opts.ignore_global_time_filter = value.lower() == "true"
+        else:
+            raise ParseError(f"unknown query option {name!r}")
+        if lex.is_keyword(","):
+            lex.next_token()
+    lex.next_token()
+    return opts
 
 
 def parse_filter_or(lex: Lexer, field_name: str) -> Filter:
@@ -126,7 +181,7 @@ def parse_generic_filter(lex: Lexer, field_name: str) -> Filter:
         lex.next_token()
         return f
     if lex.is_keyword(">", "<"):
-        raise NotImplementedError("numeric range filters")
+        return _parse_compare(lex, field_name)
     if lex.is_keyword("="):
         lex.next_token()
         return _parse_eq_tail(lex, field_name)
@@ -142,13 +197,12 @@ def parse_generic_filter(lex: Lexer, field_name: str) -> Filter:
     if lex.is_keyword("not", "!", "-"):
         lex.next_token()
         return FilterNot(parse_generic_filter(lex, field_name))
-    if lex.is_keyword("i") and lex.pos < len(lex.s) and \
-            lex.s[lex.pos] == "(":
-        return _parse_i(lex, field_name)
-    for kw in _FUNC_FILTERS:
-        if lex.is_keyword(kw) and lex.pos < len(lex.s) and \
-                lex.s[lex.pos] in "([":
-            raise NotImplementedError(f"{kw}() filter")
+    for kw, fn in _FUNC_FILTERS.items():
+        if lex.is_keyword(kw) and (
+                _peek_is_lparen(lex)
+                or (kw == "range" and lex.pos < len(lex.s)
+                    and lex.s[lex.pos] == "[")):
+            return fn(lex, field_name)
     if lex.is_keyword(",", ")", "[", "]", "|") or lex.is_end():
         raise ParseError(f"unexpected token {lex.token!r} "
                          f"near ...{lex.context()}")
@@ -160,6 +214,11 @@ def parse_generic_filter(lex: Lexer, field_name: str) -> Filter:
     stop = _STOP_TOKENS if field_name else _STOP_TOKENS + (":",)
     phrase = _get_compound_token(lex, stop=stop)
     return _parse_filter_for_phrase(lex, phrase, field_name)
+
+
+def _peek_is_lparen(lex: Lexer) -> bool:
+    """A function filter's name is followed right away by '('."""
+    return lex.pos < len(lex.s) and lex.s[lex.pos] == "("
 
 
 _STOP_TOKENS = ("*", ",", "(", ")", "[", "]", "|", "")
@@ -193,7 +252,7 @@ def _parse_filter_for_phrase(lex: Lexer, phrase: str,
     if phrase == "_time":
         return _parse_filter_time_generic(lex)
     if phrase == "_stream_id":
-        raise NotImplementedError("_stream_id filters")
+        return _parse_filter_stream_id(lex)
     return parse_generic_filter(lex, phrase)
 
 
@@ -206,9 +265,61 @@ def _parse_regexp_tail(lex: Lexer, field_name: str) -> Filter:
     return FilterRegexp(field_name, pat)
 
 
-def _parse_i(lex: Lexer, field_name: str) -> Filter:
-    """`i(phrase)` or `i(prefix*)`: one argument, any case."""
+def _parse_eq_tail(lex: Lexer, field_name: str) -> Filter:
+    if lex.is_keyword("*"):
+        lex.next_token()
+        return FilterExactPrefix(field_name, "")
+    value = _get_compound_token(lex, stop=_STOP_TOKENS)
+    if lex.is_keyword("*") and not lex.is_skipped_space:
+        lex.next_token()
+        return FilterExactPrefix(field_name, value)
+    return FilterExact(field_name, value)
+
+
+def _parse_compare(lex: Lexer, field_name: str) -> Filter:
+    """`>x`, `>=x`, `<x`, `<=x`: a range with one infinite bound; a
+    strict bound moves to the next float."""
+    gt = lex.is_keyword(">")
     lex.next_token()
+    eq = lex.is_keyword("=") and not lex.is_skipped_space
+    if eq:
+        lex.next_token()
+    v = _get_compound_token(lex)
+    fv = parse_number(v)
+    if math.isnan(fv):
+        raise ParseError(f"cannot parse number {v!r} after "
+                         f"'{'>' if gt else '<'}'")
+    op = (">" if gt else "<") + ("=" if eq else "")
+    if gt:
+        lo = fv if eq else math.nextafter(fv, math.inf)
+        return FilterRange(field_name, lo, math.inf, repr_str=f"{op}{v}")
+    hi = fv if eq else math.nextafter(fv, -math.inf)
+    return FilterRange(field_name, -math.inf, hi, repr_str=f"{op}{v}")
+
+
+# ---- function-style filters ----
+
+def _parse_func_args(lex: Lexer) -> list[str]:
+    """`(arg, arg, ...)`, each a compound token or a quoted string."""
+    if not lex.is_keyword("("):
+        raise ParseError(f"missing '(' ; got {lex.token!r}")
+    lex.next_token()
+    args: list[str] = []
+    while not lex.is_keyword(")"):
+        if lex.is_keyword(","):
+            lex.next_token()
+            continue
+        if lex.is_keyword("*"):
+            args.append("*")
+            lex.next_token()
+            continue
+        args.append(_get_compound_token(lex))
+    lex.next_token()
+    return args
+
+
+def _parse_func_args_raw_star(lex: Lexer) -> list[tuple[str, bool]]:
+    """Args where a trailing `*` marks a prefix: exact(foo*), i(foo*)."""
     if not lex.is_keyword("("):
         raise ParseError("missing '('")
     lex.next_token()
@@ -223,6 +334,66 @@ def _parse_i(lex: Lexer, field_name: str) -> Filter:
             lex.next_token()
         args.append((tok, star))
     lex.next_token()
+    return args
+
+
+def _try_parse_subquery(lex: Lexer):
+    """`(query | pipes)` of in()/contains_*(): the Query, or None (and
+    the lexer back where it was) when the parentheses hold plain
+    arguments; a subquery has at least one pipe."""
+    save = (lex.pos, lex.token, lex.raw_token, lex.is_quoted,
+            lex.is_skipped_space)
+    try:
+        if not lex.is_keyword("("):
+            return None
+        lex.next_token()
+        q = _parse_query_internal(lex)
+        if not lex.is_keyword(")") or not q.pipes:
+            raise ParseError("not a subquery")
+        lex.next_token()
+        return q
+    except (ParseError, ValueError):
+        (lex.pos, lex.token, lex.raw_token, lex.is_quoted,
+         lex.is_skipped_space) = save
+        return None
+
+
+def _parse_in(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    sub = _try_parse_subquery(lex)
+    if sub is not None:
+        return FilterIn(field_name, [], subquery=sub)
+    args = _parse_func_args(lex)
+    if args == ["*"]:
+        return FilterNoop()
+    return FilterIn(field_name, args)
+
+
+def _contains_parser(cls):
+    def parse(lex: Lexer, field_name: str) -> Filter:
+        lex.next_token()
+        sub = _try_parse_subquery(lex)
+        if sub is not None:
+            return cls(field_name, [], subquery=sub)
+        return cls(field_name, _parse_func_args(lex))
+    return parse
+
+
+def _parse_exact(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    args = _parse_func_args_raw_star(lex)
+    if len(args) != 1:
+        raise ParseError("exact() expects one arg")
+    value, star = args[0]
+    if star:
+        return FilterExactPrefix(field_name, value)
+    return FilterExact(field_name, value)
+
+
+def _parse_i(lex: Lexer, field_name: str) -> Filter:
+    """`i(phrase)` or `i(prefix*)`: one argument, any case."""
+    lex.next_token()
+    args = _parse_func_args_raw_star(lex)
     if len(args) != 1:
         raise ParseError("i() expects one arg")
     phrase, star = args[0]
@@ -231,15 +402,133 @@ def _parse_i(lex: Lexer, field_name: str) -> Filter:
     return FilterAnyCasePhrase(field_name, phrase)
 
 
-def _parse_eq_tail(lex: Lexer, field_name: str) -> Filter:
-    if lex.is_keyword("*"):
+def _parse_regexp_func(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    args = _parse_func_args(lex)
+    if len(args) != 1:
+        raise ParseError("re() expects one arg")
+    return FilterRegexp(field_name, args[0])
+
+
+def _parse_range(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    if not lex.is_keyword("(", "["):
+        raise ParseError("range must be followed by '(' or '['")
+    inc_lo = lex.is_keyword("[")
+    lex.next_token()
+    lo_s = _get_compound_token(lex)
+    if not lex.is_keyword(","):
+        raise ParseError("missing ',' in range()")
+    lex.next_token()
+    hi_s = _get_compound_token(lex)
+    if not lex.is_keyword(")", "]"):
+        raise ParseError("missing ')' or ']' in range()")
+    inc_hi = lex.is_keyword("]")
+    lex.next_token()
+    lo, hi = parse_number(lo_s), parse_number(hi_s)
+    if math.isnan(lo) or math.isnan(hi):
+        raise ParseError(f"cannot parse range bounds ({lo_s},{hi_s})")
+    rs = f"range{'[' if inc_lo else '('}{lo_s},{hi_s}{']' if inc_hi else ')'}"
+    if not inc_lo:
+        lo = math.nextafter(lo, math.inf)
+    if not inc_hi:
+        hi = math.nextafter(hi, -math.inf)
+    return FilterRange(field_name, lo, hi, repr_str=rs)
+
+
+def _parse_ipv4_range(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    args = _parse_func_args(lex)
+    if len(args) == 1:
+        s = args[0]
+        if "/" in s:
+            base, bits = s.rsplit("/", 1)
+            ip = parse_ipv4(base)
+            if ip is None or not bits.isdigit() or int(bits) > 32:
+                raise ParseError(f"invalid CIDR {s!r}")
+            shift = 32 - int(bits)
+            lo = (ip >> shift) << shift
+            return FilterIPv4Range(field_name, lo, lo | ((1 << shift) - 1))
+        ip = parse_ipv4(s)
+        if ip is None:
+            raise ParseError(f"invalid IP {s!r}")
+        return FilterIPv4Range(field_name, ip, ip)
+    if len(args) != 2:
+        raise ParseError("ipv4_range() expects 1 or 2 args")
+    lo, hi = parse_ipv4(args[0]), parse_ipv4(args[1])
+    if lo is None or hi is None:
+        raise ParseError(f"invalid IPs in ipv4_range{args}")
+    return FilterIPv4Range(field_name, lo, hi)
+
+
+def _parse_len_range(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    args = _parse_func_args(lex)
+    if len(args) != 2:
+        raise ParseError("len_range() expects 2 args")
+
+    def bound(s, dflt):
+        if s.lower() == "inf":
+            return dflt
+        v = parse_number(s)
+        if math.isnan(v):
+            raise ParseError(f"bad len_range bound {s!r}")
+        return int(v)
+    return FilterLenRange(field_name, bound(args[0], 0),
+                          bound(args[1], 1 << 62))
+
+
+def _parse_string_range(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    args = _parse_func_args(lex)
+    if len(args) != 2:
+        raise ParseError("string_range() expects 2 args")
+    return FilterStringRange(field_name, args[0], args[1])
+
+
+def _one_arg_parser(cls, name: str):
+    def parse(lex: Lexer, field_name: str) -> Filter:
         lex.next_token()
-        return FilterExactPrefix(field_name, "")
-    value = _get_compound_token(lex, stop=_STOP_TOKENS)
-    if lex.is_keyword("*") and not lex.is_skipped_space:
+        args = _parse_func_args(lex)
+        if len(args) != 1:
+            raise ParseError(f"{name}() expects 1 arg")
+        return cls(field_name, args[0])
+    return parse
+
+
+def _field_cmp_parser(strict: bool):
+    def parse(lex: Lexer, field_name: str) -> Filter:
         lex.next_token()
-        return FilterExactPrefix(field_name, value)
-    return FilterExact(field_name, value)
+        args = _parse_func_args(lex)
+        if len(args) != 1:
+            raise ParseError(f"{'lt' if strict else 'le'}_field() expects "
+                             f"1 arg")
+        return FilterLeField(field_name, args[0], strict=strict)
+    return parse
+
+
+def _parse_seq(lex: Lexer, field_name: str) -> Filter:
+    lex.next_token()
+    return FilterSequence(field_name, _parse_func_args(lex))
+
+
+_FUNC_FILTERS = {
+    "contains_all": _contains_parser(FilterContainsAll),
+    "contains_any": _contains_parser(FilterContainsAny),
+    "eq_field": _one_arg_parser(FilterEqField, "eq_field"),
+    "exact": _parse_exact,
+    "i": _parse_i,
+    "in": _parse_in,
+    "ipv4_range": _parse_ipv4_range,
+    "le_field": _field_cmp_parser(strict=False),
+    "len_range": _parse_len_range,
+    "lt_field": _field_cmp_parser(strict=True),
+    "range": _parse_range,
+    "re": _parse_regexp_func,
+    "seq": _parse_seq,
+    "string_range": _parse_string_range,
+    "value_type": _one_arg_parser(FilterValueType, "value_type"),
+}
 
 
 # ---- _time filters ----
@@ -252,8 +541,10 @@ def _now_ns(lex: Lexer) -> int:
 
 
 def _parse_filter_time_generic(lex: Lexer) -> Filter:
-    if lex.is_keyword("day_range", "week_range"):
-        raise NotImplementedError(f"_time:{lex.token} filters")
+    if lex.is_keyword("day_range"):
+        return _parse_day_range(lex)
+    if lex.is_keyword("week_range"):
+        return _parse_week_range(lex)
     f = _parse_filter_time(lex)
     if lex.is_keyword("offset"):
         lex.next_token()
@@ -325,10 +616,81 @@ def _time_bound(lex: Lexer, s: str, end: bool) -> int:
         return _now_ns(lex) + d if d < 0 else _now_ns(lex) - d
     tb = ts_bounds(s)
     if tb is None:
-        if s.lstrip("-").isdigit():
-            raise NotImplementedError("numeric _time bounds")
+        if s.isdigit() or (s[:1] == "-" and s[1:].isdigit()):
+            # unix seconds, milliseconds, microseconds or nanoseconds by
+            # magnitude: FilterTime.to_string() renders raw nanoseconds
+            from ..server.insertutil import parse_timestamp
+            return parse_timestamp(int(s))
         raise ParseError(f"cannot parse time bound {s!r}")
     return tb[1] if end else tb[0]
+
+
+def _parse_offset_modifier(lex: Lexer) -> int:
+    if not lex.is_keyword("offset"):
+        return 0
+    lex.next_token()
+    tok = _get_compound_token(lex)
+    d = parse_duration(tok)
+    if d is None:
+        raise ParseError(f"invalid offset duration {tok!r}")
+    return d
+
+
+def _parse_bracket_pair(lex: Lexer, what: str):
+    """`[lo, hi]` with `(`/`)` for exclusive ends, then an optional
+    `offset d`: (lo, hi, inc_lo, inc_hi, offset ns, repr)."""
+    lex.next_token()
+    if not lex.is_keyword("[", "("):
+        raise ParseError(f"{what} must be followed by '[' or '('")
+    inc_lo = lex.is_keyword("[")
+    lex.next_token()
+    lo_s = _get_compound_token(lex)
+    if not lex.is_keyword(","):
+        raise ParseError(f"missing ',' in {what}")
+    lex.next_token()
+    hi_s = _get_compound_token(lex)
+    if not lex.is_keyword("]", ")"):
+        raise ParseError(f"missing ']' or ')' in {what}")
+    inc_hi = lex.is_keyword("]")
+    lex.next_token()
+    off = _parse_offset_modifier(lex)
+    rs = f"{'[' if inc_lo else '('}{lo_s},{hi_s}{']' if inc_hi else ')'}"
+    return lo_s, hi_s, inc_lo, inc_hi, off, rs
+
+
+def _parse_day_range(lex: Lexer) -> Filter:
+    lo_s, hi_s, inc_lo, inc_hi, off, rs = _parse_bracket_pair(lex,
+                                                              "day_range")
+
+    def day_off(s):
+        parts = s.split(":")
+        if len(parts) != 2 or not parts[0].isdigit() or \
+                not parts[1].isdigit():
+            raise ParseError(f"invalid day_range bound {s!r}; want hh:mm")
+        return (int(parts[0]) * 3600 + int(parts[1]) * 60) * NS
+    lo, hi = day_off(lo_s), day_off(hi_s)
+    return FilterDayRange(lo if inc_lo else lo + 1,
+                          hi if inc_hi else hi - 1, tz_offset_ns=-off,
+                          repr_str=rs)
+
+
+_WEEKDAYS = {
+    "sun": 0, "sunday": 0, "mon": 1, "monday": 1, "tue": 2, "tuesday": 2,
+    "wed": 3, "wednesday": 3, "thu": 4, "thursday": 4, "fri": 5,
+    "friday": 5, "sat": 6, "saturday": 6,
+}
+
+
+def _parse_week_range(lex: Lexer) -> Filter:
+    lo_s, hi_s, inc_lo, inc_hi, off, rs = _parse_bracket_pair(lex,
+                                                              "week_range")
+    try:
+        lo, hi = _WEEKDAYS[lo_s.lower()], _WEEKDAYS[hi_s.lower()]
+    except KeyError:
+        raise ParseError(f"invalid week_range bounds [{lo_s},{hi_s}]")
+    return FilterWeekRange(lo if inc_lo else lo + 1,
+                           hi if inc_hi else hi - 1, tz_offset_ns=-off,
+                           repr_str=rs)
 
 
 # ---- _stream ----
@@ -355,7 +717,8 @@ def _parse_filter_stream(lex: Lexer) -> Filter:
         op = lex.token
         lex.next_token()
         if lex.is_keyword("in") and not lex.is_quoted:
-            raise NotImplementedError("label in(...) inside stream filter")
+            raise ParseError("label in(...) inside stream filter "
+                             "not supported yet")
         cur.append(TagFilter(label, op, lex.token))
         lex.next_token()
     lex.next_token()
@@ -364,3 +727,10 @@ def _parse_filter_stream(lex: Lexer) -> Filter:
     if not or_groups:
         return FilterNoop()
     return FilterStream(StreamFilter(tuple(or_groups)))
+
+
+def _parse_filter_stream_id(lex: Lexer) -> Filter:
+    if lex.is_keyword("in") and _peek_is_lparen(lex):
+        lex.next_token()
+        return FilterStreamID(_parse_func_args(lex))
+    return FilterStreamID([_get_compound_token(lex)])

@@ -16,14 +16,19 @@ where CUDA is unavailable.  A caller passes its own runner (one with
 device="cpu" runs the kernels' plain versions), or `runner=None` for
 the host executor, which filters block by block with numpy.
 
+`extra_filters` and `extra_stream_filters` AND a filter into the query:
+a JSON object `{"field": ["v1", "v2"], ...}` becomes `field:in(v1, v2)`
+filters, anything else is parsed as a LogsQL filter (HTTPError(400)
+when it does not parse).
+
 Not here yet: the HTTP server, tracing, the active-query registry and
-slow-query log, `timeout` deadlines, `extra_filters` /
-`extra_stream_filters` (answered with HTTPError(400) until the `in`
-filter is ported), and the hits, facets and tail endpoints.
+slow-query log, `timeout` deadlines, and the hits, facets and tail
+endpoints.
 """
 
 from __future__ import annotations
 
+import json
 import time
 import weakref
 
@@ -31,7 +36,9 @@ from ..engine.emit import ndjson_block
 from ..engine.searcher import run_query, run_query_collect_columns
 from ..gpu.batch import TorchBatchRunner
 from ..logsql.duration import parse_duration, ts_bounds
-from ..logsql.parser import MAX_TS, MIN_TS, ParseError, Query, parse_query
+from ..logsql.filters import FilterAnd, FilterIn
+from ..logsql.parser import (MAX_TS, MIN_TS, ParseError, Query,
+                             parse_filter_string, parse_query)
 from ..logsql.pipes import PipeLimit, PipeOffset, PipeStats
 from .insertutil import get_tenant_id, parse_timestamp
 
@@ -99,10 +106,41 @@ def parse_common_args(args, headers) -> tuple[Query, list]:
     if start != MIN_TS or end != MAX_TS:
         q.add_time_filter(start, end)
     for extra_arg in ("extra_filters", "extra_stream_filters"):
-        if args.get(extra_arg, ""):
-            raise HTTPError(400, f"{extra_arg} is not supported yet: it "
-                                 f"needs the `in` filter")
+        ef = args.get(extra_arg, "")
+        if ef:
+            _apply_extra_filters(q, ef)
     return q, [get_tenant_id(headers, args)]
+
+
+def _apply_extra_filters(q: Query, ef: str) -> None:
+    """AND `ef` (a JSON object of field -> value or values, or a LogsQL
+    filter) into the query's filter."""
+    try:
+        obj = json.loads(ef)
+    except json.JSONDecodeError:
+        obj = None
+    if isinstance(obj, dict):
+        fs = []
+        for k, vals in obj.items():
+            if isinstance(vals, str):
+                vals = [vals]
+            if not isinstance(vals, list):
+                raise HTTPError(400, f"cannot parse extra_filters: the "
+                                     f"value of {k!r} is not a string or "
+                                     f"a list")
+            fs.append(FilterIn(k, [str(v) for v in vals]))
+        if not fs:
+            return
+        extra = FilterAnd(fs) if len(fs) > 1 else fs[0]
+    else:
+        try:
+            extra = parse_filter_string(ef)
+        except (ParseError, ValueError) as e:
+            raise HTTPError(400, f"cannot parse extra_filters: {e}")
+    if isinstance(q.filter, FilterAnd):
+        q.filter.filters.insert(0, extra)
+    else:
+        q.filter = FilterAnd([extra, q.filter])
 
 
 def _query_pipes(q: Query, args) -> None:

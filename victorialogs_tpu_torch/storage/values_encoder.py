@@ -33,6 +33,20 @@ VT_FLOAT64 = 8
 VT_IPV4 = 9
 VT_TIMESTAMP_ISO8601 = 10
 
+VT_NAMES = {
+    VT_STRING: "string",
+    VT_CONST: "const",
+    VT_DICT: "dict",
+    VT_UINT8: "uint8",
+    VT_UINT16: "uint16",
+    VT_UINT32: "uint32",
+    VT_UINT64: "uint64",
+    VT_INT64: "int64",
+    VT_FLOAT64: "float64",
+    VT_IPV4: "ipv4",
+    VT_TIMESTAMP_ISO8601: "iso8601",
+}
+
 MAX_DICT_ENTRIES = 8  # reference: consts.go:61-70
 MAX_DICT_BYTES = 256
 
