@@ -87,7 +87,25 @@ Phases, each fatal on failure:
    its listed launches a part, and answers like the main queries; then
    `handle_query` on `error` with `extra_filters` {"app": ["app-1",
    "app-2"]} equals the same handler with no runner (three scans, one
-   device part).  The scan and the count must move on this path.
+   device part).  The scan and the count must move on this path.  Then
+   the slice path of the pipes on the main store, its counts zeroed
+   right before it (`slice_queries`): `error | sort by (dur) desc limit
+   10`, `error | first 5 by (dur)` and `quota | last 3 by (dur)` (the
+   top-k prefilter: `topk_parts` equal to the device parts, no decline,
+   one scan or gated scan a part; the rows the card returned are
+   printed against the filter's matches, and the device operations of a
+   warm run with the most device time; their /select/logsql/query
+   answers are held against the host executor's rows serialized, not
+   against a second host sort), `quota | uniq by (app, lvl) with hits`,
+   `quota | where dur:>1000 | stats by (app) count()` (`stats` after
+   another pipe: the filter on the card, the stats on the host) and
+   `quota | copy app as app2 | rename lvl as level | delete user | limit
+   1000`, each driven like the main queries; then /select/logsql/hits
+   (`handle_hits`, `error` by `_time:1h` and `app`) and
+   /select/logsql/stats_query_range (`error | stats by (app) count()`,
+   step 1h), each equal to the same handler with no runner and through
+   the default runner, one scan and one count launch a part.  The scan,
+   the gated scan and the count must move on this path.
 4. report: per-query time of the cold run (no rows built), p50 over
    warm runs without the result rows built, the time of the one warm
    run with them built (dict rows, the run held against the host
@@ -141,7 +159,9 @@ FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
 ANSWER_KEYS = ("query", "rows_out", "host_s", "device_p50_s",
                "device_collect_p50_s", "ndjson_p50_s", "ndjson_bytes",
                "ndjson_rows_per_s", "api_query_p50_s", "api_fields_p50_s",
-               "api_stats_p50_s", "device_busy_s", "cpu_fallbacks")
+               "api_stats_p50_s", "device_busy_s", "cpu_fallbacks",
+               "topk_rows", "matched_rows", "api_hits_p50_s",
+               "api_range_p50_s")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak
 
@@ -232,6 +252,21 @@ def busy_share(fn):
                getattr(e, "self_cuda_time_total", 0.0)
                for e in prof.key_averages())
     return wall, (busy / 1e6 if busy else None)
+
+
+def device_ops(fn, n: int = 6) -> list:
+    """The `n` device operations (kernels and copies) of one call with
+    the most device time under the profiler: [(name, ms, count)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.key, (getattr(e, "self_device_time_total", 0.0) or
+                    getattr(e, "self_cuda_time_total", 0.0)) / 1e3, e.count)
+           for e in prof.key_averages()]
+    return sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])[:n]
 
 
 # ---------------- phase 2: kernels against their plain versions ----------
@@ -1442,6 +1477,64 @@ def filter_queries(stream_id: str) -> list:
     ]
 
 
+def slice_queries() -> list:
+    """The pipes' path on the main store: (name, LogsQL, {kernel:
+    launches per device part}, whether the top-k prefilter runs)."""
+    scan, gscan = "match_scan", "match_scan_gated"
+    return [
+        ("topk_desc", "error | sort by (dur) desc limit 10", {scan: 1},
+         True),
+        ("topk_first", "error | first 5 by (dur)", {scan: 1}, True),
+        ("topk_gated", "quota | last 3 by (dur)", {gscan: 1}, True),
+        # host pipes behind the narrow `quota`
+        ("uniq_rows", "quota | uniq by (app, lvl) with hits", {gscan: 1},
+         False),
+        ("where_stats", "quota | where dur:>1000 | stats by (app) count()",
+         {gscan: 1}, False),
+        ("copy_rows", "quota | copy app as app2 | rename lvl as level "
+                      "| delete user | limit 1000", {gscan: 1}, False),
+    ]
+
+
+HITS_ARGS = {"query": "error", "step": "1h", "field": "app"}
+RANGE_ARGS = {"query": "error | stats by (app) count()", "step": "1h"}
+
+
+def handler_answers(storage, runner, wrappers, timed) -> list:
+    """/select/logsql/hits and /select/logsql/stats_query_range, each
+    held against the same handler with no runner and answered through
+    the default runner: one scan and one count launch a part."""
+    from victorialogs_tpu_torch.server.vlselect import (
+        handle_hits, handle_stats_query_range)
+    out = []
+    for label, fn, args, size in (
+            ("api_hits", handle_hits, HITS_ARGS,
+             lambda a: sum(len(g["values"]) for g in a["hits"])),
+            ("api_range", handle_stats_query_range, RANGE_ARGS,
+             lambda a: sum(len(s["values"])
+                           for s in a["data"]["result"]))):
+        t0 = time.perf_counter()
+        want = fn(storage, dict(args), {}, runner=None)
+        t_host = time.perf_counter() - t0
+        check_default_runner(label, storage, want,
+                             lambda: fn(storage, dict(args), {}))
+        before = launch_counts(wrappers, runner.stats_counters)
+        got = fn(storage, dict(args), {}, runner=runner)
+        check_launches(label, wrappers, runner.stats_counters, before,
+                       {"match_scan": 1, "stats_count_seg": 1})
+        if got != want or not size(got):
+            fail(f"{label}: the answer differs from the handler's with no "
+                 f"runner")
+        p50 = timed(lambda: fn(storage, dict(args), {}, runner=runner),
+                    WARM_RUNS)
+        log(f"answer {label}: {size(got)} samples, p50 {p50:.4f} s, host "
+            f"executor {t_host:.3f} s")
+        out.append({"query": f"{label} {json.dumps(args)}",
+                    "rows_out": size(got), "host_s": t_host,
+                    f"{label}_p50_s": p50})
+    return out
+
+
 PATH_ROWS = 65_536            # rows of the gated pair's store, one flush
 PATH_QUERY = '~"/api/v1/users.*timeout"'   # bloom tokens `api`, `v1`
 # request-path messages of apps 0 and 1: A then B, A alone, B before A,
@@ -1516,12 +1609,14 @@ def ndjson_lines(rows: list) -> bytes:
 
 def row_answers(storage, tenants, name: str, q: str, want: list, runner,
                 kernels: dict, wrappers, timed,
-                limit_parts: int | None = 1) -> dict:
+                limit_parts: int | None = 1,
+                host_handler: bool = True) -> dict:
     """A row query's answers: the full NDJSON export (held against the
     host executor's rows serialized) and /select/logsql/query at its
     default limit (held against the same handler with no runner, on
-    `limit_parts` device parts, any number when None); `phrase` also
-    answers FIELDS_CASE."""
+    `limit_parts` device parts, any number when None, or where not
+    `host_handler` against `want` serialized: the one block a sort
+    writes); `phrase` also answers FIELDS_CASE."""
     from victorialogs_tpu_torch.engine.emit import ndjson_block
     from victorialogs_tpu_torch.engine.searcher import run_query
     from victorialogs_tpu_torch.server.vlselect import handle_query
@@ -1545,7 +1640,8 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
         cases.append(("api_fields", q + FIELDS_CASE))
     for label, text in cases:
         args = {"query": text}
-        want_chunks = handle_query(storage, args, {}, runner=None)
+        want_chunks = handle_query(storage, args, {}, runner=None) \
+            if host_handler else [ndjson_lines(want[:1000])]
         if label == "api_query":
             check_default_runner(f"{label} {name}", storage, want_chunks,
                                  lambda: handle_query(storage, args, {}))
@@ -1732,7 +1828,7 @@ def main() -> int:
     report = []
     phrase_rows = None
     t0_queries = time.perf_counter()
-    def drive(name: str, q: str, kernels: dict):
+    def drive(name: str, q: str, kernels: dict, host_handler: bool = True):
         """One query through every check and timing of phase 3: the host
         executor, a cold run (its launches checked) and a warm one held
         against it, warm p50s, a profiled run and its answers; (report
@@ -1789,7 +1885,8 @@ def main() -> int:
             # fewer than 1000 rows a part: the limit-1000 answer walks on
             limit_parts = 1 if len(want) >= 1000 * dev_parts else None
             ans = row_answers(storage, tenants, name, q, want, runner,
-                              kernels, wrappers, timed, limit_parts)
+                              kernels, wrappers, timed, limit_parts,
+                              host_handler)
             log(f"answer {name}: NDJSON export p50 "
                 f"{ans['ndjson_p50_s']:.4f} s for {ans['ndjson_bytes']} B, "
                 f"{ans['ndjson_rows_per_s']:,.0f} rows/s (dict rows p50 "
@@ -1860,6 +1957,50 @@ def main() -> int:
         if flaunches[w.__name__] == 0:
             fail(f"{w.__name__} was not launched on the filters' path")
         launches[w.__name__] += flaunches[w.__name__]
+    if parts["host_parts"]:
+        fail(f"{parts['host_parts']} parts ran on the host")
+
+    # phase 3, the pipes' path on the same store: the sort top-k
+    # prefilter, host row pipes, stats after a pipe, hits and
+    # stats_query_range, its counts zeroed first
+    t_phase = time.perf_counter()
+    for w in wrappers:
+        w.launches = 0
+    for name, q, kernels, topk in slice_queries():
+        before = dict(parts)
+        row, got = drive(name, q, kernels, host_handler=not topk)
+        ran = {k: parts[k] - before[k] for k in
+               ("device_parts", "topk_parts", "topk_declines", "topk_rows")}
+        if topk != (ran["topk_parts"] > 0) or ran["topk_declines"] or \
+                (topk and ran["topk_parts"] != ran["device_parts"]):
+            fail(f"query {name}: the top-k prefilter ran on "
+                 f"{ran['topk_parts']} of {ran['device_parts']} device "
+                 f"parts, {ran['topk_declines']} declined")
+        if topk:
+            flt = q.split(" | ")[0]
+            matched = int(run_query_collect(
+                storage, tenants, f"{flt} | stats count() n",
+                runner=runner)[0]["n"])
+            runs = ran["device_parts"] // row["device_parts"]
+            row["topk_rows"] = ran["topk_rows"] // runs
+            row["matched_rows"] = matched
+            log(f"query {name}: the card returned {row['topk_rows']} of "
+                f"{matched} matched rows a run ({runs} runs); device ops "
+                f"of a warm run (name, ms, count): " + str(device_ops(
+                    lambda q=q: run_query(storage, tenants, q,
+                                          lambda br: None,
+                                          runner=runner))))
+        report.append(row)
+        del got
+    for row in handler_answers(storage, runner, wrappers, timed):
+        report.append(row)
+    slaunches = {w.__name__: w.launches for w in wrappers}
+    log(f"pipes' path launches: {slaunches}; runner parts: {parts}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for w in (K.match_scan, K.match_scan_gated, stats_count_seg):
+        if slaunches[w.__name__] == 0:
+            fail(f"{w.__name__} was not launched on the pipes' path")
+        launches[w.__name__] += slaunches[w.__name__]
     if parts["host_parts"]:
         fail(f"{parts['host_parts']} parts ran on the host")
 

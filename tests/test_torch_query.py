@@ -17,7 +17,9 @@ longer than the staging width (settled on the host), the planner's
 bloom gate (a bloom leaf ANDed with a scan is one `gscan` node whose
 masks equal the unfused `and(bloom, scan)` program's; a leaf that is
 not a scan goes ungated and still returns the JAX package's rows),
-pipes outside the port raising NotImplementedError, and a check
+pipes, stats functions and buckets still outside the port raising
+NotImplementedError (tests/test_torch_pipes.py holds the ported pipes
+to the JAX package), and a check
 that no module of the port and no line of chip_smoke.py imports jax or
 victorialogs_tpu.
 """
@@ -366,12 +368,13 @@ def test_long_values_settle_on_host():
 
 
 @pytest.mark.parametrize("q", [
-    "re(foo) | sort by (dur) desc limit 5", "x:>5 | uniq by (app)",
-    "foo | sort by (_time)", "foo | stats uniq_values(x)",
-    "foo | stats by (_time:month) count()", "seq(a, b) | where x:=1",
-    "_stream_id:abc | math dur * 2 as d",
-    "foo | stats count() if (x)", "in(a, b) | copy app as app2",
-    "foo | limit 5 | uniq by (x)",
+    "foo | stats uniq_values(x)", "foo | stats by (_time:month) count()",
+    "_stream_id:abc | math dur * 2 as d", "foo | stats count() if (x)",
+    'foo | extract "<ip> " from _msg', "foo | unpack_json",
+    "foo | join by (x) (bar)", "x:>5 | stats values(x)",
+    "foo | where y | stats histogram(dur)",
+    "foo | sort by (dur) | top 5 by (app)",
+    "foo | stats by (_time:week) count()",
 ])
 def test_outside_the_slice_raises(q):
     with pytest.raises(NotImplementedError):

@@ -424,10 +424,10 @@ def _e2e_queries(t0: int) -> list:
 
 def test_e2e_query_list():
     from victorialogs_tpu_torch.cli.vlogsgenerator import today_start_ns
-    assert len(_e2e_queries(today_start_ns())) == 51
+    assert len(_e2e_queries(today_start_ns())) == 52
 
 
-@pytest.mark.parametrize("qi", range(51))
+@pytest.mark.parametrize("qi", range(52))
 def test_stats_query_matches_jax(stats_stores, monkeypatch, qi):
     t0, port, jst = stats_stores
     from victorialogs_tpu_torch.engine.searcher import run_query_collect

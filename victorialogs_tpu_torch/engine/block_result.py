@@ -8,7 +8,9 @@ carry the pipe chain's needed fields (`from_block_search(..., needed)`:
 (`restrict_fields`: names outside it read as absent) without leaving
 its block, so the NDJSON emit (engine/emit.py) reads its columns
 through `emit_columns`: typed arrays and byte arenas gathered through
-the selection, no per-row Python objects.
+the selection, no per-row Python objects.  Pipes that rewrite columns
+(`copy`, `rename`) work on a detached copy (`materialize`), which keeps
+the rows' timestamps for `_time` buckets further down the chain.
 """
 
 from __future__ import annotations
@@ -111,8 +113,10 @@ class BlockResult:
         return self._restrict_set is not None and \
             name not in self._restrict_set
 
-    def timestamps_np(self) -> np.ndarray:
-        if self._ts_np is None:
+    def timestamps_np(self) -> np.ndarray | None:
+        """int64 timestamps of the rows, or None for a batch that holds
+        none (built by a pipe from string columns)."""
+        if self._ts_np is None and self._bs is not None:
             self._ts_np = self._bs.timestamps()[self._sel]
         return self._ts_np
 
@@ -154,6 +158,19 @@ class BlockResult:
         if name == "_stream_id":
             return self._bs.stream_id.as_string()
         return None
+
+    def dict_value_counts(self, name: str):
+        """[(value, count)] over the selected rows of a const or dict
+        column, or None."""
+        cv = self.const_value(name)
+        if cv is not None:
+            return [(cv, self.nrows)]
+        dc = self.dict_column(name)
+        if dc is None:
+            return None
+        ids, dvals = dc
+        binc = np.bincount(ids, minlength=len(dvals))
+        return [(dvals[j], int(binc[j])) for j in np.nonzero(binc)[0]]
 
     def dict_column(self, name: str):
         """(selected dict ids, dict values) of a dict-encoded storage
@@ -199,6 +216,15 @@ class BlockResult:
             names[n] = None
         return list(names)
 
+    def materialize(self, fields: list[str] | None = None) -> "BlockResult":
+        """A detached copy of the named columns (all by default), with
+        the rows' timestamps."""
+        names = fields if fields is not None else self.column_names()
+        out = BlockResult.from_columns({n: self.column(n) for n in names})
+        out.nrows = self.nrows
+        out._ts_np = self.timestamps_np()
+        return out
+
     def restrict_fields(self, fields: list[str]) -> "BlockResult":
         """Project to exactly `fields`, in order, without leaving the
         block: names outside read as "", and the typed access of the
@@ -206,9 +232,7 @@ class BlockResult:
         narrow."""
         fields = list(dict.fromkeys(fields))
         if self._bs is None:          # a detached copy of those columns
-            br = BlockResult.from_columns({n: self.column(n) for n in fields})
-            br.nrows = self.nrows
-            return br
+            return self.materialize(fields)
         br = BlockResult(self.nrows)
         br._bs = self._bs
         br._sel = self._sel
@@ -234,8 +258,8 @@ class BlockResult:
         if self._bs is not None:
             br._bs = self._bs
             br._sel = self._sel[keep]
-            if self._ts_np is not None:
-                br._ts_np = self._ts_np[keep]
+        if self._ts_np is not None:
+            br._ts_np = self._ts_np[keep]
         return br
 
     def rows(self, fields: list[str] | None = None) -> list[dict]:

@@ -18,6 +18,12 @@ where `handled` blocks are already reduced in `partials` (one per
 nonempty cell: key parts, count, value stats, uniq values, quantile
 numbers), which become the functions' partial states and merge into
 the stats processor; the rest come back as bitmaps for the row path.
+A row query whose first pipe is `sort by (field) limit N`
+(`gpu/sort_device.device_sort_spec`) asks
+`runner.run_part_topk(f, part, bss, sort_spec)` first: it returns only
+the rows at or above the part's k-th best key, or None, and then the
+part runs `run_part`.  The walk stays serial, so the sort pipe sees the
+surviving rows in the order the host executor would.
 
 The walk stops once the pipe chain reports itself done (a satisfied
 `limit`): it checks before each part's filter or stats program and
@@ -33,13 +39,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..gpu.sort_device import device_sort_spec
 from ..gpu.stats_device import build_partial_states
 from ..logsql.duration import format_rfc3339
 from ..logsql.filters import (FilterAnd, FilterContainsAll,
                               FilterContainsAny, FilterIn, FilterNot,
                               FilterOr, FilterStream, FilterStreamID)
 from ..logsql.parser import MAX_TS, MIN_TS, Query, parse_query
-from ..logsql.pipes import PipeStats, SinkProcessor, compute_needed_fields
+from ..logsql.pipes import (PipeStats, PipeWhere, SinkProcessor,
+                            compute_needed_fields)
 from ..storage.log_rows import TenantID
 from .block_result import BlockResult
 from .block_search import BlockSearch
@@ -101,9 +109,13 @@ def _run_single_column_subquery(storage, tenants, sub, runner=None
 
 
 def init_subqueries(storage, tenants, q: Query, runner=None) -> None:
-    """Give every `in(<subquery>)`-style filter of the query its values
-    by running its subquery."""
-    for f in list(_iter_subquery_filters(q.filter)):
+    """Give every `in(<subquery>)`-style filter of the query and of its
+    `where` pipes its values by running its subquery."""
+    subfilters = list(_iter_subquery_filters(q.filter))
+    for p in q.pipes:
+        if isinstance(p, PipeWhere):
+            subfilters.extend(_iter_subquery_filters(p.filter))
+    for f in subfilters:
         f.set_values(_run_single_column_subquery(storage, tenants,
                                                  f.subquery, runner))
 
@@ -184,6 +196,8 @@ def run_query(storage, tenants, q: Query | str, write_block,
         head = pipe.make_processor(head)
     needed = compute_needed_fields(q.pipes)
     spec = runner.stats_spec(q) if runner is not None else None
+    sort_spec = device_sort_spec(q) if runner is not None and \
+        spec is None else None
     for part, bss in _candidate_parts(storage, q, tenants, min_ts, max_ts):
         if head.is_done():
             break
@@ -194,7 +208,10 @@ def run_query(storage, tenants, q: Query | str, write_block,
                 q.filter, part, bss, spec)
             absorb_stats_partials(head, q.pipes[0], spec, partials)
         elif runner is not None:
-            bms = runner.run_part(q.filter, part, bss)
+            if sort_spec is not None:
+                bms = runner.run_part_topk(q.filter, part, bss, sort_spec)
+            if bms is None:
+                bms = runner.run_part(q.filter, part, bss)
         for bi, bs in bss.items():
             if bi in handled:
                 continue

@@ -12,7 +12,10 @@ device program (gpu/fused.py), runs it, and either
   group-by, count_uniq and quantile axes: one count launch (kernel 2)
   without a value column, else one value-reduction call for all value
   columns, whose count rows are the count; only the per-cell results
-  are downloaded (`run_part_stats`).
+  are downloaded (`run_part_stats`), or
+- for a `sort by (field) limit N` query (gpu/sort_device.py), keeps
+  only the matched rows at or above the part's k-th best sort key
+  (`run_part_topk`, `topk_parts`) and downloads those.
 
 Maybe rows (values truncated by the staging) are settled on the host
 with the filter's own predicate.  Where the planner cannot express the
@@ -40,14 +43,16 @@ from ..device import resolve_device
 from ..logsql import filters as F
 from ..storage.values_encoder import VT_DICT, VT_STRING
 from .bloom_device import block_starts, stage_bloom_plane
-from .fused import (_NoFuse, _Planner, eval_node, part_layout,
-                    residue_partials, settle_maybe, stage_layout_column)
+from .fused import (TOPK_SCORE_MAX, _NoFuse, _Planner, eval_node,
+                    part_layout, residue_partials, settle_maybe,
+                    stage_layout_column, topk_rows)
 from .kernels import combine_ids, packbits
 from .layout import StagingCache, rows_with_multibyte
 from .stats_device import (MAX_ABS_TIMES_ROWS, MAX_BUCKETS,
                            MAX_QUANTILE_RANGE, SYNTH_EMPTY, SYNTH_LEN,
                            StatsSpec, device_stats_spec)
 from .stats_seg import split_values, stats_count_seg, stats_values
+from .sort_device import SortSpec
 from .stats_stage import (stage_dict_codes, stage_empty_column,
                           stage_len_column, stage_num_buckets,
                           stage_numeric, stage_time_buckets)
@@ -128,7 +133,8 @@ class TorchBatchRunner:
         self.cache = StagingCache()
         self.stats_counters = {"device_parts": 0, "device_rows": 0,
                                "host_parts": 0, "maybe_rows": 0,
-                               "cpu_fallbacks": 0}
+                               "cpu_fallbacks": 0, "topk_parts": 0,
+                               "topk_declines": 0, "topk_rows": 0}
 
     def close(self) -> None:
         self.cache.clear()
@@ -390,6 +396,40 @@ class TorchBatchRunner:
         d, m = eval_node(tree, args, layout.nrows_padded, self.device)
         d_np, m_np = self._download(d, m, cand, has_maybe,
                                     layout.nrows_padded)
+        return settle_maybe(f, bss, layout, d_np, m_np)
+
+    def run_part_topk(self, f, part, bss: dict, spec: SortSpec):
+        """block_idx -> bitmap of the filter's rows at or above the
+        part's k-th best `spec.field` key, maybe rows settled on the
+        host (a superset of the part's rows in the query's top k), or
+        None where the part declines: a candidate block whose sort field
+        is not int-typed, a staged range over TOPK_SCORE_MAX, or a tree
+        the planner cannot express (`topk_declines`).  `topk_rows`
+        counts the rows it downloads."""
+        layout = self.layout(part)
+        sn = self.stage_numeric(part, spec.field, layout)
+        if sn is None or any(bi not in sn.eligible for bi in bss) or \
+                sn.vmax - sn.vmin > TOPK_SCORE_MAX:
+            self.stats_counters["topk_declines"] += 1
+            return None
+        prog = self._program(f, part, bss)
+        if prog is None:
+            self.stats_counters["topk_declines"] += 1
+            return None
+        tree, args, layout, has_maybe, cand = prog
+        self._count_device_part(layout)
+        self.stats_counters["topk_parts"] += 1
+        if tree == ("false",):
+            return {bi: np.zeros(bs.nrows, dtype=bool)
+                    for bi, bs in bss.items()}
+        rlp = layout.nrows_padded
+        d, m = eval_node(tree, args, rlp, self.device)
+        m = m & cand if has_maybe and m is not None else None
+        d, m = topk_rows(d & cand, m, sn.values, min(spec.k, rlp),
+                         spec.desc)
+        d_np, m_np = self._download(d, m, cand, m is not None, rlp)
+        self.stats_counters["topk_rows"] += int(d_np.sum()) + (
+            0 if m_np is None else int(m_np.sum()))
         return settle_maybe(f, bss, layout, d_np, m_np)
 
     # ---- the per-leaf path of a tree the planner declines ----

@@ -36,6 +36,10 @@ multibyte rows whose byte length leaves the code-point count open: the
 host settles them with the filter's own predicate, so results equal the
 host executor's.  Filters the planner cannot express raise `_NoFuse`;
 the runner then walks the tree leaf by leaf (gpu/batch.py).
+
+`topk_rows` is the sort prefilter's k-selection over a program's masks
+(`torch.topk`: the JAX package's `lax.top_k` also runs outside any
+Pallas kernel).
 """
 
 from __future__ import annotations
@@ -605,6 +609,27 @@ def eval_node(node, args, rlp: int, device):
     if all(km is None for _, km in kids):
         return d, None
     return d, pos & ~d
+
+
+# ---------------- filter | sort-topk prefilter ----------------
+
+TOPK_SCORE_MAX = (1 << 31) - 2     # the widest staged range a score holds
+
+
+def topk_rows(d, m, values, k: int, desc: bool):
+    """The rows of the definite mask `d` and the maybe mask `m` (None
+    for none) at or above the k-th best score among the definite rows
+    (gpu/sort_device.py).  `values` holds the sort field's staged int32
+    offsets, all in [0, TOPK_SCORE_MAX]; ascending sorts score
+    TOPK_SCORE_MAX - v.  Rows outside `d` score -1, so with fewer than k
+    definite rows every row of `d` and `m` stays."""
+    v = values if desc else TOPK_SCORE_MAX - values
+    s = torch.where(d, v, -1)
+    kv = torch.topk(s, k).values[k - 1]
+    out_d = d & (s >= kv)
+    if m is None:
+        return out_d, None
+    return out_d, m & (torch.where(m, v, -1) >= kv)
 
 
 # ---------------- host residue: settle the maybe rows ----------------

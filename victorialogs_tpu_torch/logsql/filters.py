@@ -26,6 +26,10 @@ out or not; `len_range` counts a string column's code points from its
 arena.  Per-block constant filters (`_stream:{...}`, `_stream_id:`,
 `value_type()`) test the block once; `day_range`/`week_range` and the
 cross-field filters (`eq_field`, `le_field`, `lt_field`) go row by row.
+
+`apply_to_values(get_values, n)` evaluates a node over rows already in
+the pipe chain (the `where` pipe): `get_values(field)` gives a column's
+strings.  `needed_fields` names the fields a node reads.
 """
 
 from __future__ import annotations
@@ -37,12 +41,14 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..engine.block_search import BlockSearch, visit_values
+from ..storage.stream_filter import parse_stream_tags
 from ..storage.bloom import bloom_contains_all
 from ..storage.values_encoder import (VT_FLOAT64, VT_INT64, VT_IPV4,
                                       VT_STRING, VT_UINT8, VT_UINT16,
                                       VT_UINT32, VT_UINT64)
 from ..utils.hashing import cached_token_hashes
 from ..utils.tokenizer import is_word_char_table, tokenize_string
+from .duration import parse_rfc3339
 from .matchers import (is_word_char, match_any_case_phrase,
                        match_any_case_prefix, match_exact_prefix,
                        match_ipv4_range, match_len_range, match_phrase,
@@ -76,6 +82,12 @@ def canonical_field(field: str) -> str:
 class Filter:
     def apply_to_block(self, bs: BlockSearch, bm: np.ndarray) -> None:
         raise NotImplementedError
+
+    def apply_to_values(self, get_values, nrows: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def needed_fields(self) -> set:
+        return set()
 
     def to_string(self) -> str:
         raise NotImplementedError
@@ -273,6 +285,14 @@ class _ValuePredFilter(Filter):
             if verify:
                 _verify_rows(col, bm, self._pred)
 
+    def apply_to_values(self, get_values, nrows: int) -> np.ndarray:
+        vals = get_values(canonical_field(self.field))
+        return np.fromiter((self._pred(v) for v in vals), dtype=bool,
+                           count=nrows)
+
+    def needed_fields(self) -> set:
+        return {canonical_field(self.field)}
+
 
 @dataclass(repr=False)
 class FilterAnd(Filter):
@@ -283,6 +303,18 @@ class FilterAnd(Filter):
             if not bm.any():
                 return
             f.apply_to_block(bs, bm)
+
+    def apply_to_values(self, get_values, nrows):
+        mask = np.ones(nrows, dtype=bool)
+        for f in self.filters:
+            mask &= f.apply_to_values(get_values, nrows)
+        return mask
+
+    def needed_fields(self):
+        out = set()
+        for f in self.filters:
+            out |= f.needed_fields()
+        return out
 
     def to_string(self):
         return " ".join(f"({f.to_string()})" if isinstance(f, FilterOr)
@@ -303,6 +335,18 @@ class FilterOr(Filter):
                 break
         bm &= acc
 
+    def apply_to_values(self, get_values, nrows):
+        mask = np.zeros(nrows, dtype=bool)
+        for f in self.filters:
+            mask |= f.apply_to_values(get_values, nrows)
+        return mask
+
+    def needed_fields(self):
+        out = set()
+        for f in self.filters:
+            out |= f.needed_fields()
+        return out
+
     def to_string(self):
         return " or ".join(f"({f.to_string()})" if isinstance(f, FilterOr)
                            else f.to_string() for f in self.filters)
@@ -316,6 +360,12 @@ class FilterNot(Filter):
         sub = np.ones(bs.nrows, dtype=bool)
         self.inner.apply_to_block(bs, sub)
         bm &= ~sub
+
+    def apply_to_values(self, get_values, nrows):
+        return ~self.inner.apply_to_values(get_values, nrows)
+
+    def needed_fields(self):
+        return self.inner.needed_fields()
 
     def to_string(self):
         s = self.inner.to_string()
@@ -331,6 +381,9 @@ class FilterNoop(Filter):
     def apply_to_block(self, bs, bm):
         pass
 
+    def apply_to_values(self, get_values, nrows):
+        return np.ones(nrows, dtype=bool)
+
     def to_string(self):
         return "*"
 
@@ -341,6 +394,9 @@ class FilterNone(Filter):
 
     def apply_to_block(self, bs, bm):
         bm[:] = False
+
+    def apply_to_values(self, get_values, nrows):
+        return np.zeros(nrows, dtype=bool)
 
     def to_string(self):
         return "_none_"
@@ -953,6 +1009,14 @@ class FilterValueType(Filter):
         if not self.matches(bs):
             bm[:] = False
 
+    def apply_to_values(self, get_values, nrows):
+        # rows in the pipe chain have lost their storage type: all pass
+        # only for `string`, as in the reference
+        return np.full(nrows, self.type_name == "string", dtype=bool)
+
+    def needed_fields(self):
+        return {canonical_field(self.field)}
+
     def to_string(self):
         return f"{_q(self.field)}value_type({self.type_name})"
 
@@ -972,6 +1036,15 @@ class FilterEqField(Filter):
         for i in np.nonzero(bm)[0].tolist():
             if a[i] != b[i]:
                 bm[i] = False
+
+    def apply_to_values(self, get_values, nrows):
+        a = get_values(self.field)
+        b = get_values(self.other)
+        return np.fromiter((x == y for x, y in zip(a, b)), dtype=bool,
+                           count=nrows)
+
+    def needed_fields(self):
+        return {canonical_field(self.field), self.other}
 
     def to_string(self):
         return f"{_q(self.field)}eq_field({self.other})"
@@ -999,6 +1072,15 @@ class FilterLeField(Filter):
             if not self._cmp(a[i], b[i]):
                 bm[i] = False
 
+    def apply_to_values(self, get_values, nrows):
+        a = get_values(self.field)
+        b = get_values(self.other)
+        return np.fromiter((self._cmp(x, y) for x, y in zip(a, b)),
+                           dtype=bool, count=nrows)
+
+    def needed_fields(self):
+        return {canonical_field(self.field), self.other}
+
     def to_string(self):
         fn = "lt_field" if self.strict else "le_field"
         return f"{_q(self.field)}{fn}({self.other})"
@@ -1015,6 +1097,16 @@ class FilterTime(Filter):
         if ts[0] >= self.min_ts and ts[-1] <= self.max_ts:
             return
         bm &= (ts >= self.min_ts) & (ts <= self.max_ts)
+
+    def apply_to_values(self, get_values, nrows):
+        out = np.zeros(nrows, dtype=bool)
+        for i, v in enumerate(get_values("_time")):
+            t = parse_rfc3339(v)
+            out[i] = t is not None and self.min_ts <= t <= self.max_ts
+        return out
+
+    def needed_fields(self):
+        return {"_time"}
 
     def to_string(self):
         return f"_time:{self.repr_str}" if self.repr_str else \
@@ -1045,6 +1137,15 @@ class FilterStream(Filter):
                 ctx.partition, ctx.tenants):
             bm[:] = False
 
+    def apply_to_values(self, get_values, nrows):
+        out = np.zeros(nrows, dtype=bool)
+        for i, v in enumerate(get_values("_stream")):
+            out[i] = self.stream_filter.matches(parse_stream_tags(v))
+        return out
+
+    def needed_fields(self):
+        return {"_stream"}
+
     def to_string(self):
         return self.stream_filter.to_string()
 
@@ -1067,6 +1168,18 @@ class FilterDayRange(Filter):
         bm &= (day_off >= self.start_offset_ns) & \
             (day_off <= self.end_offset_ns)
 
+    def apply_to_values(self, get_values, nrows):
+        out = np.zeros(nrows, dtype=bool)
+        for i, v in enumerate(get_values("_time")):
+            t = parse_rfc3339(v)
+            if t is not None:
+                off = (t + self.tz_offset_ns) % _NS_PER_DAY
+                out[i] = self.start_offset_ns <= off <= self.end_offset_ns
+        return out
+
+    def needed_fields(self):
+        return {"_time"}
+
     def to_string(self):
         return f"_time:day_range{self.repr_str}"
 
@@ -1087,6 +1200,18 @@ class FilterWeekRange(Filter):
         wd = (days + 4) % 7
         bm &= (wd >= self.start_day) & (wd <= self.end_day)
 
+    def apply_to_values(self, get_values, nrows):
+        out = np.zeros(nrows, dtype=bool)
+        for i, v in enumerate(get_values("_time")):
+            t = parse_rfc3339(v)
+            if t is not None:
+                wd = ((t + self.tz_offset_ns) // _NS_PER_DAY + 4) % 7
+                out[i] = self.start_day <= wd <= self.end_day
+        return out
+
+    def needed_fields(self):
+        return {"_time"}
+
     def to_string(self):
         return f"_time:week_range{self.repr_str}"
 
@@ -1103,6 +1228,14 @@ class FilterStreamID(Filter):
     def apply_to_block(self, bs, bm):
         if bs.stream_id.as_string() not in self._set:
             bm[:] = False
+
+    def apply_to_values(self, get_values, nrows):
+        return np.fromiter((v in self._set
+                            for v in get_values("_stream_id")),
+                           dtype=bool, count=nrows)
+
+    def needed_fields(self):
+        return {"_stream_id"}
 
     def to_string(self):
         if len(self.stream_ids) == 1:

@@ -1,15 +1,21 @@
-"""Query API handlers: `/select/logsql/query` and
-`/select/logsql/stats_query`, as functions of (storage, args, headers).
+"""Query API handlers: `/select/logsql/query`, `/select/logsql/stats_query`,
+`/select/logsql/hits` and `/select/logsql/stats_query_range`, as
+functions of (storage, args, headers).
 
 `handle_query` answers NDJSON, one chunk a result block, each written
 by the columnar emit (engine/emit.py); the endpoint appends `| offset
 N` and `| limit N` (1000 unless `limit` says otherwise, 0 for none), so
 the part walk stops once the limit is met.  `handle_stats_query`
 answers a query ending in `stats` as a Prometheus instant vector at
-`time`.  Both take `start`/`end` (added as a time filter), `time` (the
-query's now) and the tenant's AccountID/ProjectID.
+`time`.  `handle_hits` (VMUI's histogram) appends `| stats by
+(_time:<step> [offset <offset>], <field>...) count() hits` and answers
+the hit counts per bucket and field values; `handle_stats_query_range`
+(a Grafana time series) adds `_time:<step>` to the query's own `stats`
+and answers a Prometheus range matrix.  All take `start`/`end` (added
+as a time filter), `time` (the query's now) and the tenant's
+AccountID/ProjectID.
 
-Both run the query's filter and stats programs on the card: by default
+All run the query's filter and stats programs on the card: by default
 through the storage's own `TorchBatchRunner` (made on first use, kept
 while the storage lives, so its staged parts stay warm), which raises
 where CUDA is unavailable.  A caller passes its own runner (one with
@@ -21,9 +27,9 @@ a JSON object `{"field": ["v1", "v2"], ...}` becomes `field:in(v1, v2)`
 filters, anything else is parsed as a LogsQL filter (HTTPError(400)
 when it does not parse).
 
-Not here yet: the HTTP server, tracing, the active-query registry and
-slow-query log, `timeout` deadlines, and the hits, facets and tail
-endpoints.
+Not here yet: the HTTP server, tracing (the `trace` key of the
+reference's answers), the active-query registry and slow-query log,
+`timeout` deadlines, and the facets and tail endpoints.
 """
 
 from __future__ import annotations
@@ -35,11 +41,12 @@ import weakref
 from ..engine.emit import ndjson_block
 from ..engine.searcher import run_query, run_query_collect_columns
 from ..gpu.batch import TorchBatchRunner
-from ..logsql.duration import parse_duration, ts_bounds
+from ..logsql import stats_funcs as sf
+from ..logsql.duration import parse_duration, parse_rfc3339, ts_bounds
 from ..logsql.filters import FilterAnd, FilterIn
 from ..logsql.parser import (MAX_TS, MIN_TS, ParseError, Query,
                              parse_filter_string, parse_query)
-from ..logsql.pipes import PipeLimit, PipeOffset, PipeStats
+from ..logsql.pipes import ByField, PipeLimit, PipeOffset, PipeStats
 from .insertutil import get_tenant_id, parse_timestamp
 
 
@@ -201,3 +208,89 @@ def handle_stats_query(storage, args, headers, runner=CARD) -> dict:
             result.append({"metric": metric, "value": [ts / 1e9, vc[i]]})
     return {"status": "success",
             "data": {"resultType": "vector", "result": result}}
+
+
+def _step_arg(args) -> str:
+    step = args.get("step", "1d")
+    if parse_duration(step) is None:
+        raise HTTPError(400, f"invalid step {step!r}")
+    return step
+
+
+def _hits_pipes(q: Query, args) -> list:
+    """/select/logsql/hits: append `stats by (_time:<step> [offset],
+    <field>...) count() hits`; returns the extra group fields."""
+    step = _step_arg(args)
+    offset_s = args.get("offset", "0s")
+    fields = [f.strip() for name in ("field", "fields")
+              for f in args.get(name, "").split(",") if f.strip()]
+    by = [ByField("_time", bucket=step, bucket_offset=offset_s)] + \
+        [ByField(f) for f in fields]
+    fn = sf.StatsCount([])
+    fn.out_name = "hits"
+    q.pipes.append(PipeStats(by, [fn]))
+    return fields
+
+
+def handle_hits(storage, args, headers, runner=CARD) -> dict:
+    """The /select/logsql/hits answer: per group of field values, the
+    bucket times and hit counts, groups by total hits descending."""
+    q, tenants = parse_common_args(args, headers)
+    fields = _hits_pipes(q, args)
+    if runner is CARD:
+        runner = card_runner(storage)
+    cols, n = run_query_collect_columns(storage, tenants, q, runner=runner)
+    tcol = cols.get("_time") or [""] * n
+    hcol = cols.get("hits") or [""] * n
+    fcols = [cols.get(f) or [""] * n for f in fields]
+    groups: dict = {}
+    for i in range(n):
+        key = tuple((f, fc[i]) for f, fc in zip(fields, fcols))
+        g = groups.setdefault(key, {"fields": dict(key), "timestamps": [],
+                                    "values": [], "total": 0})
+        g["timestamps"].append(tcol[i])
+        hits = int(hcol[i] or "0")
+        g["values"].append(hits)
+        g["total"] += hits
+    return {"hits": sorted(groups.values(), key=lambda g: -g["total"])}
+
+
+def _stats_range_pipes(q: Query, args) -> PipeStats:
+    """/select/logsql/stats_query_range: the query's `stats` grouped by
+    `_time:<step>` first, unless it groups by `_time` already."""
+    sp = _require_stats_query(q)
+    step = _step_arg(args)
+    if not any(b.name == "_time" for b in sp.by):
+        sp.by.insert(0, ByField("_time", bucket=step))
+    return sp
+
+
+def handle_stats_query_range(storage, args, headers, runner=CARD) -> dict:
+    """The /select/logsql/stats_query_range answer: one series a
+    function and group, its samples in time order."""
+    q, tenants = parse_common_args(args, headers)
+    sp = _stats_range_pipes(q, args)
+    if runner is CARD:
+        runner = card_runner(storage)
+    cols, nrows = run_query_collect_columns(storage, tenants, q,
+                                            runner=runner)
+    series: dict = {}
+    by_names = [b.name for b in sp.by if b.name != "_time"]
+    tcol = cols.get("_time") or [""] * nrows
+    by_cols = [cols.get(n) or [""] * nrows for n in by_names]
+    fn_cols = [cols.get(fn.out_name) or [""] * nrows for fn in sp.funcs]
+    for i in range(nrows):
+        t = parse_rfc3339(tcol[i]) or 0
+        for fn, vc in zip(sp.funcs, fn_cols):
+            key = (fn.out_name,) + tuple((n, bc[i])
+                                         for n, bc in zip(by_names, by_cols))
+            s = series.setdefault(key, {"metric": dict(
+                [("__name__", fn.out_name)] +
+                [(n, bc[i]) for n, bc in zip(by_names, by_cols)
+                 if bc[i] != ""]), "values": []})
+            s["values"].append([t / 1e9, vc[i]])
+    for s in series.values():
+        s["values"].sort()
+    return {"status": "success",
+            "data": {"resultType": "matrix",
+                     "result": list(series.values())}}
