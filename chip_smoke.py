@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 1. build: compile the CUDA kernels of csrc/ with nvcc (in parallel) and
    print ptxas's registers, spills and shared memory per kernel; build
-   the NDJSON serializer (native/emit.cpp) with g++ and print its time.
+   the NDJSON serializer (native/emit.cpp) and the ingest library
+   (native/ingest.cpp) with g++ and print their times.
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, bit for bit, at edge shapes (ragged row counts; widths 32, 128
    and 256; every mode x fold x word-boundary combination; 1 and 8
@@ -35,8 +36,16 @@ Phases, each fatal on failure:
    both outputs, the counts of definite, maybe and gated-out rows
    printed; and the fold scan of an `i()` leaf with and without its
    multibyte mask (`check_fold`).
-3. main path: ingest >= 4M generated rows through LogRows -> Storage
-   with 4 flushes, then run the query list through
+3. main path: ingest 4M generated rows as a user sends them, through
+   /insert/jsonline (`handle_jsonline`, the generator's JSON-lines
+   bodies) into a Storage with 4 flushes, which must give 4 parts of 1M
+   rows in 64 blocks each with no chunk of the bodies parsed in Python
+   (`INGEST_COUNTERS["py_chunks"]` 0); ingest ROUTE_ROWS generator rows
+   by rows, by /insert/jsonline and by Elasticsearch _bulk
+   (`handle_elasticsearch_bulk`) into one flush each, whose three parts
+   must be equal; one line a route gives rows/s, us a row, the body's
+   bytes, the handler's and the flush's seconds and the counters.  Then
+   run the query list through
    run_query_collect(..., runner=TorchBatchRunner(device="cuda")) and
    require each result to equal the host executor's.  Every query must
    run each of its parts on the card (none on the host), launch each of
@@ -129,8 +138,9 @@ Phases, each fatal on failure:
    the gated scan behind gates of 64, 1,000 and 1,100 blocks with 6 and
    30 probes a block (`gate_sweep`), each held against its plain version
    and timed beside its bound; the card's name and power limit, then a
-   JSON line of kernel figures and each query's answer figures
-   (`answers`) and a last JSON line with the device.
+   JSON line of kernel figures, each query's answer figures
+   (`answers`) and each route's ingest figures (`ingest`), and a last
+   JSON line with the device.
 
 Every time says where it came from: the profiler's device time, or CUDA
 events around back-to-back calls (which also count the host launch path)
@@ -153,7 +163,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ROWS = 4_000_000              # main-path rows, ingested with 4 flushes
 WARM_RUNS = 5                 # timed warm runs per query, no rows built
-WARM_NDJSON_RUNS = 2          # timed warm runs of a row query's export
+WARM_NDJSON_RUNS = 1          # timed warm runs of a row query's export
 FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
 # per-query figures of the last-but-one line beside the kernels
 ANSWER_KEYS = ("query", "rows_out", "host_s", "device_p50_s",
@@ -1383,28 +1393,170 @@ def gate_sweep(rng, dev) -> list:
 
 # ---------------- phase 3: the main path ----------------
 
-def ingest(total: int, flushes: int, seed: int, make=None):
-    """A Storage on the card holding `total` rows of `make` (n, seed,
-    start, span) -> rows (the generator's by default), in `flushes`
-    flushes: (storage, start, rows)."""
-    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
-                                                           generate,
-                                                           today_start_ns)
+INGEST_STREAM_FIELDS = ["app", "host"]
+ROUTE_ROWS = 65_536           # rows of the store ingested by every route
+
+
+def flush_body(route: str, n: int, seed: int, start: int, span: int):
+    """One flush's generator rows as the body of `route` (bytes), or
+    the rows themselves for route `rows`."""
+    from victorialogs_tpu_torch.cli import vlogsgenerator as gen
+    rows = gen.generate(n, seed, start, span)
+    if route == "rows":
+        return rows
+    return (gen.jsonline_body if route == "jsonline" else gen.bulk_body)(rows)
+
+
+def store_by_route(route: str, batches: list):
+    """A Storage on the card fed one flush a batch, each sent as a user
+    sends it: `rows` (a list of generator rows: LogRows ->
+    must_add_rows), `jsonline` (handle_jsonline) or `bulk`
+    (handle_elasticsearch_bulk) with a body.  (storage, figures: rows,
+    body bytes, the seconds in the handler and in the flush)."""
+    from victorialogs_tpu_torch.server import insertutil, vlinsert
     from victorialogs_tpu_torch.storage.log_rows import LogRows, TenantID
     from victorialogs_tpu_torch.storage.storage import Storage
-    make = make or generate
+    storage = Storage(device="cuda")
+    cp = insertutil.CommonParams(tenant=TenantID(0, 0),
+                                 stream_fields=INGEST_STREAM_FIELDS)
+    fig = {"route": route, "rows": 0, "body_bytes": 0, "handler_s": 0.0,
+           "flush_s": 0.0}
+    for batch in batches:
+        t0 = time.perf_counter()
+        if route == "rows":
+            lr = LogRows(stream_fields=INGEST_STREAM_FIELDS)
+            for ts, fields in batch:
+                lr.add(cp.tenant, ts, fields)
+            storage.must_add_rows(lr)
+            n, want = len(lr), len(batch)
+        else:
+            lmp = insertutil.LogMessageProcessor(
+                cp, insertutil.LocalLogRowsStorage(storage))
+            if route == "jsonline":
+                n = vlinsert.handle_jsonline(cp, batch, lmp)
+                want = batch.count(b"\n")
+            else:
+                n, resp = vlinsert.handle_elasticsearch_bulk(cp, batch, lmp)
+                want = batch.count(b"\n") // 2
+                if len(resp["items"]) != n or resp["errors"]:
+                    fail(f"_bulk answered {n} rows with errors "
+                         f"{resp['errors']} and {len(resp['items'])} items")
+            lmp.flush()
+            fig["body_bytes"] += len(batch)
+        t1 = time.perf_counter()
+        storage.debug_flush()
+        t2 = time.perf_counter()
+        if n != want:
+            fail(f"ingest by {route}: {n} rows of {want}")
+        fig["rows"] += n
+        fig["handler_s"] += t1 - t0
+        fig["flush_s"] += t2 - t1
+    secs = fig["handler_s"] + fig["flush_s"]
+    fig["rows_per_s"] = fig["rows"] / secs
+    fig["us_per_row"] = secs / fig["rows"] * 1e6
+    return storage, fig
+
+
+def ingest_route(route: str, total: int, flushes: int, seed: int):
+    """ingest()'s store (the same generator rows for the same seed),
+    each flush's rows sent by `route` (store_by_route).  The flushes'
+    bodies are made in parallel, one process a flush (set-up, timed
+    apart as `setup_s`).  (storage, start, rows, figures)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
+                                                           today_start_ns)
     start = today_start_ns()
     span = NS_PER_DAY // 2
-    storage = Storage(device="cuda")
     per = total // flushes
-    for k in range(flushes):
-        lr = LogRows(stream_fields=["app", "host"])
-        for ts, fields in make(per, seed + k, start + k * span // flushes,
-                               span // flushes):
-            lr.add(TenantID(0, 0), ts, fields)
-        storage.must_add_rows(lr)
-        storage.debug_flush()
-    return storage, start, per * flushes
+    args = [(route, per, seed + k, start + k * span // flushes,
+             span // flushes) for k in range(flushes)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=flushes,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        batches = list(ex.map(flush_body, *zip(*args)))
+    setup_s = time.perf_counter() - t0
+    storage, fig = store_by_route(route, batches)
+    fig["setup_s"] = setup_s
+    return storage, start, per * flushes, fig
+
+
+def log_ingest(fig: dict, counters: dict) -> None:
+    setup = (f"rows and body made in {fig['setup_s']:.2f} s; "
+             if "setup_s" in fig else "")
+    log(f"ingest by {fig['route']}: {fig['rows']} rows, body "
+        f"{fig['body_bytes']} B; {setup}handler {fig['handler_s']:.2f} s, "
+        f"flush {fig['flush_s']:.2f} s: {fig['rows_per_s']:.0f} rows/s "
+        f"({fig['us_per_row']:.2f} us a row); counters {counters}")
+
+
+def parts_equal(a, b) -> str | None:
+    """None when two parts hold the same blocks (stream, tags,
+    timestamps, consts, columns with their payload and bloom), else
+    what differs."""
+    import numpy as np
+    if (a.num_blocks, a.num_rows, a.min_ts, a.max_ts) != \
+            (b.num_blocks, b.num_rows, b.min_ts, b.max_ts):
+        return (f"{a.num_blocks} blocks, {a.num_rows} rows vs "
+                f"{b.num_blocks} blocks, {b.num_rows} rows")
+    for i, (x, y) in enumerate(zip(a.blocks, b.blocks)):
+        if (x.stream_id, x.stream_tags_str, x.const_columns) != \
+                (y.stream_id, y.stream_tags_str, y.const_columns) or \
+                not np.array_equal(x.timestamps, y.timestamps) or \
+                [c.name for c in x.columns] != [c.name for c in y.columns]:
+            return f"block {i}: stream, timestamps, consts or column names"
+        for cx, cy in zip(x.columns, y.columns):
+            for attr in ("vtype", "dict_values", "min_val", "max_val",
+                         "iso_frac_w", "const_value"):
+                if getattr(cx, attr) != getattr(cy, attr):
+                    return f"block {i} column {cx.name}: {attr}"
+            for attr in ("ids", "nums", "arena", "offsets", "lengths",
+                         "bloom"):
+                u, v = getattr(cx, attr), getattr(cy, attr)
+                if (u is None) != (v is None) or (
+                        u is not None and (u.dtype != v.dtype or
+                                           not np.array_equal(u, v))):
+                    return f"block {i} column {cx.name}: {attr}"
+    return None
+
+
+def route_parity(seed: int) -> list:
+    """ROUTE_ROWS generator rows ingested by rows, jsonline and bulk in
+    one flush each: the three parts must be equal.  The figures of the
+    three routes."""
+    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
+                                                           bulk_body,
+                                                           generate,
+                                                           jsonline_body,
+                                                           today_start_ns)
+    from victorialogs_tpu_torch.server import vlinsert
+    rows = generate(ROUTE_ROWS, seed, today_start_ns(), NS_PER_DAY // 2)
+    figs, parts = [], {}
+    for route, batch in (("rows", rows), ("jsonline", jsonline_body(rows)),
+                         ("bulk", bulk_body(rows))):
+        for k in vlinsert.INGEST_COUNTERS:
+            vlinsert.INGEST_COUNTERS[k] = 0
+        storage, fig = store_by_route(route, [batch])
+        counters = dict(vlinsert.INGEST_COUNTERS)
+        log_ingest(fig, counters)
+        if counters["py_chunks"]:
+            fail(f"ingest by {route}: {counters['py_chunks']} chunks were "
+                 f"parsed in Python")
+        fig.update(counters, store="routes")
+        figs.append(fig)
+        (parts[route],) = [p for pt in storage.partitions.values()
+                           for p in pt.parts]
+        storage.close()
+    for route in ("jsonline", "bulk"):
+        why = parts_equal(parts[route], parts["rows"])
+        if why is not None:
+            fail(f"the part ingested by {route} differs from the one by "
+                 f"rows: {why}")
+    log(f"ingest routes: rows, jsonline and bulk gave equal parts of "
+        f"{parts['rows'].num_rows} rows in {parts['rows'].num_blocks} "
+        f"blocks")
+    return figs
 
 
 def queries(start: int) -> list:
@@ -1756,7 +1908,11 @@ def main() -> int:
                                                       stats_count_seg_plain,
                                                       stats_values,
                                                       stats_values_plain)
+    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
+                                                           today_start_ns)
     from victorialogs_tpu_torch.logsql.duration import format_rfc3339
+    from victorialogs_tpu_torch.native import ingest as native_ingest
+    from victorialogs_tpu_torch.server import vlinsert
     from victorialogs_tpu_torch.storage.filterbank import bloom_plane
     from victorialogs_tpu_torch.storage.log_rows import TenantID
     from victorialogs_tpu_torch.utils.hashing import hash_tokens
@@ -1774,6 +1930,9 @@ def main() -> int:
     secs = native.build()
     log(f"build: {secs:.1f} s for the NDJSON serializer native/emit.cpp "
         f"({native.CXX} {' '.join(native.CXX_FLAGS)})")
+    secs = native_ingest.build()
+    native_ingest.load()
+    log(f"build: {secs:.1f} s for the ingest library native/ingest.cpp")
 
     # phase 2
     t_phase = time.perf_counter()
@@ -1797,10 +1956,27 @@ def main() -> int:
 
     # phase 3
     t0 = time.perf_counter()
-    storage, start, nrows = ingest(ROWS, 4, seed=11)
+    for k in vlinsert.INGEST_COUNTERS:
+        vlinsert.INGEST_COUNTERS[k] = 0
+    storage, start, nrows, fig = ingest_route("jsonline", ROWS, 4, seed=11)
     t_ingest = time.perf_counter() - t0
-    nparts = sum(len(p.parts) for p in storage.partitions.values())
-    log(f"ingest: {nrows} rows, {nparts} parts in {t_ingest:.1f} s")
+    counters = dict(vlinsert.INGEST_COUNTERS)
+    log_ingest(fig, counters)
+    fig.update(counters, store="main")
+    ingest_figs = [fig]
+    main_parts = [p for pt in storage.partitions.values() for p in pt.parts]
+    log(f"ingest: {nrows} rows, parts of "
+        f"{[p.num_rows for p in main_parts]} rows in "
+        f"{[p.num_blocks for p in main_parts]} blocks, {t_ingest:.1f} s")
+    if [p.num_rows for p in main_parts] != [ROWS // 4] * 4 or \
+            [p.num_blocks for p in main_parts] != [64] * 4:
+        fail("the main store is not 4 parts of 1M rows in 64 blocks each")
+    if counters["py_chunks"]:
+        fail(f"{counters['py_chunks']} chunks of the generator's bodies "
+             f"were parsed in Python")
+    t0 = time.perf_counter()
+    ingest_figs += route_parity(seed=13)
+    log(f"ingest routes: {time.perf_counter() - t0:.1f} s")
     tenants = [TenantID(0, 0)]
     runner = TorchBatchRunner(device="cuda")
     # the kernels of the main path, then the standalone probe, which the
@@ -2008,7 +2184,9 @@ def main() -> int:
     # a quarter of the streams, so the pair's bloom tokens rule out the
     # other blocks of its part
     t_phase = time.perf_counter()
-    pstore, _pstart, prows = ingest(PATH_ROWS, 1, seed=12, make=path_rows)
+    pstore, _fig = store_by_route("rows", [path_rows(
+        PATH_ROWS, 12, today_start_ns(), NS_PER_DAY // 2)])
+    prows = PATH_ROWS
     prunner = TorchBatchRunner(device="cuda")
     pparts = prunner.stats_counters
     for w in wrappers:
@@ -2248,7 +2426,8 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else "nvidia-smi: no output")
     print(json.dumps({"kernels": kern, "answers": [
-        {k: r[k] for k in ANSWER_KEYS if k in r} for r in report]}))
+        {k: r[k] for k in ANSWER_KEYS if k in r} for r in report],
+        "ingest": ingest_figs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,8 @@ span_ns).
 
     python -m victorialogs_tpu_torch.cli.vlogsgenerator -rows 10 -seed 1
 
-prints the rows as JSON lines.
+prints the rows as JSON lines, the body `jsonline_body` makes for
+`/insert/jsonline`; `bulk_body` makes an Elasticsearch `_bulk` body.
 """
 
 from __future__ import annotations
@@ -68,6 +69,25 @@ def generate(n: int, seed: int, start_ns: int, span_ns: int,
             for i, s in enumerate(stream.tolist())]
 
 
+def jsonline_body(rows: list) -> bytes:
+    """generate()'s rows as an `/insert/jsonline` body: one object a row,
+    `_time` (integer nanoseconds) first, then the fields in order."""
+    return "".join(json.dumps({"_time": ts, **dict(fields)}) + "\n"
+                   for ts, fields in rows).encode("utf-8")
+
+
+def bulk_body(rows: list) -> bytes:
+    """generate()'s rows as an Elasticsearch `_bulk` body: a `create`
+    action line, then the document with `@timestamp` (integer
+    nanoseconds) and the `_msg` field as `message`."""
+    action = json.dumps({"create": {}})
+    return "".join(
+        action + "\n" + json.dumps(
+            {"@timestamp": ts, **{("message" if k == "_msg" else k): v
+                                  for k, v in fields}}) + "\n"
+        for ts, fields in rows).encode("utf-8")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="vlogsgenerator")
     p.add_argument("-rows", type=int, default=1000)
@@ -75,9 +95,9 @@ def main(argv=None) -> int:
     p.add_argument("-streams", type=int, default=64)
     args = p.parse_args(argv)
     start = today_start_ns()
-    for ts, fields in generate(args.rows, args.seed, start, NS_PER_DAY // 2,
-                               streams=args.streams):
-        sys.stdout.write(json.dumps({"_time": ts, **dict(fields)}) + "\n")
+    rows = generate(args.rows, args.seed, start, NS_PER_DAY // 2,
+                    streams=args.streams)
+    sys.stdout.write(jsonline_body(rows).decode("utf-8"))
     return 0
 
 

@@ -1,11 +1,13 @@
-"""The host serializer of query answers: native/emit.cpp through ctypes.
+"""The host libraries of the port: native/*.cpp through ctypes.
 
-`emit.cpp` compiles with g++ (the host compiler nvcc also uses) into a
+Each source compiles with g++ (the host compiler nvcc also uses) into a
 shared library with a plain C interface at first use, into
 `victorialogs_tpu_torch/_build/` (git-ignored), named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.  A failed build or load raises: the NDJSON emit has no
-per-row fallback for a missing library.
+loads at once.  A failed build or load raises: nothing falls back to
+Python for a missing library.  This module holds the NDJSON serializer
+of query answers (emit.cpp); native/ingest.py the insert path's scanner
+and token hashes (ingest.cpp).
 """
 
 from __future__ import annotations
@@ -31,33 +33,46 @@ _mu = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
+def compiled_path(src: Path, stem: str) -> Path:
+    """Where `src` compiles to: `<stem>_<hash of source and flags>.so`."""
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libvlemit_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile the library unless it exists; returns the seconds spent.
+def compile_library(src: Path, stem: str, what: str) -> float:
+    """Compile `src` unless its library exists; returns the seconds
+    spent.  Each process writes its own temporary file and renames it
+    into place, so concurrent builders never see a partial library.
     Raises with the compiler's output when the build fails."""
     t0 = time.perf_counter()
-    out = library_path()
+    out = compiled_path(src, stem)
     if out.exists():
         return 0.0
+    rel = f"native/{src.name}"
     cxx = shutil.which(CXX)
     if cxx is None:
-        raise RuntimeError(f"{CXX} not found: the NDJSON serializer "
-                           f"(native/emit.cpp) cannot be built")
+        raise RuntimeError(f"{CXX} not found: {what} ({rel}) cannot be "
+                           f"built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SRC)],
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{CXX} failed on native/emit.cpp:\n"
+        raise RuntimeError(f"{CXX} failed on {rel}:\n"
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def library_path() -> Path:
+    return compiled_path(SRC, "libvlemit")
+
+
+def build() -> float:
+    """Compile the serializer unless it exists; returns the seconds."""
+    return compile_library(SRC, "libvlemit", "the NDJSON serializer")
 
 
 def load():

@@ -1,2 +1,2 @@
-"""Query API handlers of the port (`vlselect.py`) and the request
-helpers they share (`insertutil.py`)."""
+"""API handlers of the port: queries (`vlselect.py`), inserts
+(`vlinsert.py`) and the request helpers they share (`insertutil.py`)."""

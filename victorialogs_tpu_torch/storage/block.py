@@ -3,7 +3,8 @@
 A block holds up to MAX_ROWS_PER_BLOCK rows of a single stream sorted by
 timestamp.  Every present field becomes a column through the values
 encoder; a column identical across all rows becomes a const column, and
-every other non-dict column gets a token bloom filter.
+every other non-dict column gets a token bloom filter.  A batch becomes
+blocks in storage/block_build.py.
 """
 
 from __future__ import annotations
@@ -13,8 +14,7 @@ from itertools import chain
 
 import numpy as np
 
-from ..utils.hashing import hash_tokens
-from ..utils.tokenizer import tokenize_arena, unique_tokens_bytes
+from ..native import ingest
 from .bloom import bloom_build
 from .log_rows import StreamID
 from .values_encoder import (EncodedColumn, VT_CONST, VT_DICT, VT_STRING,
@@ -55,21 +55,28 @@ class BlockData:
 
 def column_token_hashes(col: EncodedColumn, nrows: int):
     """Distinct token hashes of a column; None for const/dict columns
-    (they carry no bloom).  Typed (numeric/IPv4/ISO8601) columns decode
-    to ASCII, where the byte tokenizer equals tokenize_string, so every
-    column tokenizes as one arena."""
+    (they carry no bloom).  One native pass tokenizes, hashes and
+    dedupes (native/ingest.py); typed (numeric/IPv4/ISO8601) columns
+    decode to ASCII, where the byte tokenizer equals tokenize_string,
+    so every column tokenizes as one arena."""
     if col.vtype in (VT_CONST, VT_DICT):
         return None
     if col.vtype == VT_STRING:
-        arena, offs, lens = col.arena, col.offsets, col.lengths
-    else:
-        enc = [v.encode("utf-8") for v in col.to_strings(nrows)]
-        arena = np.frombuffer(b"".join(enc), dtype=np.uint8)
-        lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
-        offs = np.zeros(len(enc), dtype=np.int64)
-        np.cumsum(lens[:-1], out=offs[1:])
-    ts_, te_, _ = tokenize_arena(arena, offs, lens)
-    return hash_tokens(unique_tokens_bytes(arena, ts_, te_))
+        return ingest.unique_token_hashes(col.arena, col.offsets,
+                                          col.lengths)
+    enc = [v.encode("utf-8") for v in col.to_strings(nrows)]
+    lens = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc))
+    offs = np.zeros(len(enc), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    return ingest.unique_token_hashes(
+        np.frombuffer(b"".join(enc), dtype=np.uint8), offs, lens)
+
+
+def build_column_bloom(col: EncodedColumn, nrows: int) -> None:
+    """Attach the token bloom filter (none for const/dict columns)."""
+    hashes = column_token_hashes(col, nrows)
+    if hashes is not None:
+        col.bloom = bloom_build(hashes)
 
 
 def row_cost_cum(rows: list[list[tuple[str, str]]]) -> np.ndarray:
@@ -118,61 +125,47 @@ def _columns_of(rows: list[list[tuple[str, str]]]) -> dict[str, list]:
     return cols
 
 
-def build_block(stream_id: StreamID, timestamps: np.ndarray,
-                rows: list[list[tuple[str, str]]],
-                stream_tags_str: str) -> BlockData:
-    """Encode one chunk of time-sorted rows of one stream."""
-    nrows = len(rows)
+def build_block_from_columns(stream_id: StreamID, timestamps,
+                             col_values: dict[str, list],
+                             stream_tags_str: str) -> BlockData:
+    """Encode one block from its columns (name -> per-row values, in
+    column order) of one stream's time-sorted rows."""
+    ts = np.asarray(timestamps, dtype=np.int64)
+    nrows = int(ts.shape[0])
     columns: list[EncodedColumn] = []
     const_columns: list[tuple[str, str]] = []
-    for name, values in _columns_of(rows).items():
+    for name, values in col_values.items():
         col = encode_values(name, values)
         if col.vtype == VT_CONST:
             const_columns.append((name, col.const_value))
             continue
-        hashes = column_token_hashes(col, nrows)
-        if hashes is not None:
-            col.bloom = bloom_build(hashes)
+        build_column_bloom(col, nrows)
         columns.append(col)
-    return BlockData(stream_id=stream_id,
-                     timestamps=np.asarray(timestamps, dtype=np.int64),
-                     columns=columns, const_columns=const_columns,
+    return BlockData(stream_id=stream_id, timestamps=ts, columns=columns,
+                     const_columns=const_columns,
                      stream_tags_str=stream_tags_str)
 
 
-def blocks_from_log_rows(lr) -> list[BlockData]:
-    """Sort a LogRows batch by (stream_id, timestamp) and cut each
-    stream's run into size-bounded blocks."""
-    n = len(lr)
-    if n == 0:
-        return []
-    sids = lr.stream_ids
-    # rank streams by StreamID order (tenant, hi, lo); rows share their
-    # stream's StreamID objects, so factorize by identity first
-    _, first, inv = np.unique(np.fromiter(map(id, sids), dtype=np.int64,
-                                          count=n), return_index=True,
-                              return_inverse=True)
-    uniq = [sids[i] for i in first.tolist()]
-    rank_of: dict = {}
-    for sid in sorted(uniq):
-        rank_of.setdefault(sid, len(rank_of))
-    rank = np.array([rank_of[s] for s in uniq], dtype=np.int64)[
-        inv.reshape(-1)]
-    ts_arr = np.asarray(lr.timestamps, dtype=np.int64)
-    order = np.lexsort((ts_arr, rank))
-    r_sorted = rank[order]
-    bounds = [0] + (np.nonzero(np.diff(r_sorted))[0] + 1).tolist() + [n]
+def build_block(stream_id: StreamID, timestamps: np.ndarray,
+                rows: list[list[tuple[str, str]]],
+                stream_tags_str: str) -> BlockData:
+    """Encode one chunk of time-sorted rows of one stream."""
+    return build_block_from_columns(stream_id, timestamps,
+                                    _columns_of(rows), stream_tags_str)
+
+
+def build_blocks(stream_id: StreamID, timestamps: np.ndarray,
+                 rows: list[list[tuple[str, str]]],
+                 stream_tags_str: str) -> list[BlockData]:
+    """One stream's time-sorted rows cut into size-bounded blocks."""
     out: list[BlockData] = []
-    for i, j in zip(bounds[:-1], bounds[1:]):
-        idxs = order[i:j]
-        k0 = int(idxs[0])
-        ts = ts_arr[idxs]
-        rows = [lr.rows[k] for k in idxs.tolist()]
-        cum = row_cost_cum(rows)
-        s = 0
-        while s < len(rows):
-            e = chunk_end(cum, s)
-            out.append(build_block(sids[k0], ts[s:e], rows[s:e],
-                                   lr.stream_tags_str[k0]))
-            s = e
+    if not rows:
+        return out
+    cum = row_cost_cum(rows)
+    s = 0
+    while s < len(rows):
+        e = chunk_end(cum, s)
+        out.append(build_block(stream_id, timestamps[s:e], rows[s:e],
+                               stream_tags_str))
+        s = e
     return out

@@ -2,10 +2,10 @@
 
 Each partition pairs a stream index (stream id -> canonical tags, the
 `_stream:{...}` resolution source) with the list of parts its flushes
-minted.  Rows added since the last flush are buffered per partition;
-`debug_flush` sorts them by (stream, time), cuts blocks and mints ONE
-part per partition.  There are no merges and no background threads,
-so `close()` only drops state.
+minted.  Every batch added (rows or columns) is built into blocks at
+once and buffered; `debug_flush` merges the buffered block lists into
+ONE part per partition (storage/merge.py).  There are no background
+threads, so `close()` only drops state.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ import time
 import numpy as np
 
 from ..device import resolve_device
-from .block import blocks_from_log_rows
+from .block_build import build_log_rows_blocks
 from .log_rows import LogRows
+from .merge import merge_block_streams
 from .part import Part
 from .stream_filter import parse_stream_tags
 
@@ -28,38 +29,49 @@ def day_from_ts(ts_ns: int) -> int:
 
 
 class Partition:
-    """One UTC day: stream index + flushed parts + the unflushed rows."""
+    """One UTC day: stream index + flushed parts + the block lists of
+    the batches added since the last flush."""
 
     def __init__(self, day: int):
         self.day = day
         self.streams: dict = {}            # StreamID -> canonical tags
         self.parts: list[Part] = []
-        self._pending = LogRows()
+        self._pending: list[list] = []     # one block list a batch
 
     def must_add_rows(self, lr: LogRows, idxs=None) -> None:
-        """Buffer rows `idxs` of `lr` (all of them when None)."""
-        p = self._pending
+        """Build rows `idxs` of `lr` (all of them when None)."""
         if idxs is None:
             for sid, tags in lr.streams():
                 self.streams.setdefault(sid, tags)
-            p.timestamps += lr.timestamps
-            p.rows += lr.rows
-            p.stream_ids += lr.stream_ids
-            p.stream_tags_str += lr.stream_tags_str
-            return
-        for i in idxs:
-            sid = lr.stream_ids[i]
-            self.streams.setdefault(sid, lr.stream_tags_str[i])
-            p.timestamps.append(lr.timestamps[i])
-            p.rows.append(lr.rows[i])
-            p.stream_ids.append(sid)
-            p.stream_tags_str.append(lr.stream_tags_str[i])
+        else:
+            sub = LogRows()
+            for i in idxs:
+                sid = lr.stream_ids[i]
+                self.streams.setdefault(sid, lr.stream_tags_str[i])
+                sub.timestamps.append(lr.timestamps[i])
+                sub.rows.append(lr.rows[i])
+                sub.stream_ids.append(sid)
+                sub.stream_tags_str.append(lr.stream_tags_str[i])
+            lr = sub
+        self._add_blocks(build_log_rows_blocks(lr))
+
+    def must_add_columns(self, lc) -> None:
+        """Build a LogColumns batch of this day."""
+        for sid, tags in lc.unique_streams():
+            self.streams.setdefault(sid, tags)
+        self._add_blocks(lc.build_blocks())
+
+    def _add_blocks(self, blocks: list) -> None:
+        if blocks:
+            self._pending.append(blocks)
 
     def flush(self) -> None:
-        if not len(self._pending):
+        """Merge the buffered batches into one part."""
+        pending, self._pending = self._pending, []
+        if not pending:
             return
-        blocks = blocks_from_log_rows(self._pending)
-        self._pending = LogRows()
+        blocks = pending[0] if len(pending) == 1 \
+            else list(merge_block_streams(pending))
         self.parts.append(Part(blocks))
 
     def search_stream_ids(self, tenants, sf) -> set:
@@ -88,14 +100,23 @@ class Storage:
         self.rows_dropped_too_old = 0
         self.rows_dropped_too_new = 0
 
+    def _retention(self) -> tuple[int, int]:
+        now_ns = time.time_ns()
+        return (now_ns - int(self.retention_days * NSECS_PER_DAY),
+                now_ns + int(self.future_retention_days * NSECS_PER_DAY))
+
+    def _partition(self, day: int) -> Partition:
+        pt = self.partitions.get(day)
+        if pt is None:
+            pt = self.partitions[day] = Partition(day)
+        return pt
+
     def must_add_rows(self, lr: LogRows) -> None:
         """Split a batch by UTC day; rows outside the retention window
         are counted and dropped."""
         if not len(lr):
             return
-        now_ns = time.time_ns()
-        min_ts = now_ns - int(self.retention_days * NSECS_PER_DAY)
-        max_ts = now_ns + int(self.future_retention_days * NSECS_PER_DAY)
+        min_ts, max_ts = self._retention()
         ts = np.asarray(lr.timestamps, dtype=np.int64)
         old, new = ts < min_ts, ts > max_ts
         self.rows_dropped_too_old += int(old.sum())
@@ -104,11 +125,19 @@ class Storage:
         days = ts // NSECS_PER_DAY
         for day in np.unique(days[ok]).tolist():
             sel = ok & (days == day)
-            pt = self.partitions.get(day)
-            if pt is None:
-                pt = self.partitions[day] = Partition(day)
-            pt.must_add_rows(lr, None if sel.all()
-                             else np.nonzero(sel)[0].tolist())
+            self._partition(day).must_add_rows(
+                lr, None if sel.all() else np.nonzero(sel)[0].tolist())
+
+    def must_add_columns(self, lc) -> None:
+        """The LogColumns twin of must_add_rows."""
+        if lc.nrows == 0:
+            return
+        min_ts, max_ts = self._retention()
+        by_day, old, new = lc.split_by_day(min_ts, max_ts, NSECS_PER_DAY)
+        self.rows_dropped_too_old += old
+        self.rows_dropped_too_new += new
+        for day, sub in by_day.items():
+            self._partition(day).must_add_columns(sub)
 
     def select_partitions(self, min_ts: int, max_ts: int) -> list:
         lo, hi = day_from_ts(min_ts), day_from_ts(max_ts)

@@ -136,7 +136,7 @@ def encode_values(name: str, values: list[str]) -> EncodedColumn:
                                  ids=ids, _strings_cache=values)
 
     arr = np.asarray(values, dtype="U")
-    col = _try_typed_encoding(name, arr, values)
+    col = try_typed_encoding(name, arr, first, lambda: values)
     if col is not None:
         col._strings_cache = values
         return col
@@ -152,12 +152,15 @@ def encode_values(name: str, values: list[str]) -> EncodedColumn:
                          _strings_cache=values)
 
 
-def _try_typed_encoding(name: str, arr: np.ndarray,
-                        values: list[str]) -> EncodedColumn | None:
+def try_typed_encoding(name: str, arr: np.ndarray, first: str,
+                       get_values) -> EncodedColumn | None:
     """The uint{8..64} -> int64 -> float64 -> IPv4 -> ISO8601 trial
-    cascade over the column (`arr` is `values` as a U-dtype array), or
-    None when no typed encoding round-trips."""
-    first = values[0]
+    cascade over the column (`arr`: its values as a U-dtype array,
+    `first` the first value), or None when no typed encoding
+    round-trips.  Shared by encode_values and the arena encode
+    (storage/block_build.encode_arena_column), so both accept an
+    encoding on the same evidence; `get_values()` gives the values as
+    a list of str, which only the IPv4 and ISO8601 trials walk."""
     # uint8..uint64
     if first[:1].isdigit():
         u = _round_trip_uint(arr)
@@ -193,7 +196,7 @@ def _try_typed_encoding(name: str, arr: np.ndarray,
 
     # IPv4
     if _IPV4_RE.match(first):
-        ip = _try_ipv4(values)
+        ip = _try_ipv4(get_values())
         if ip is not None:
             return EncodedColumn(name=name, vtype=VT_IPV4, nums=ip,
                                  min_val=float(ip.min()),
@@ -201,7 +204,7 @@ def _try_typed_encoding(name: str, arr: np.ndarray,
 
     # ISO8601 timestamp (uniform fractional width)
     if len(first) >= 20 and first[4:5] == "-" and first.endswith("Z"):
-        parsed = _try_iso8601(values)
+        parsed = _try_iso8601(get_values())
         if parsed is not None:
             ts, frac_w = parsed
             return EncodedColumn(name=name, vtype=VT_TIMESTAMP_ISO8601,
