@@ -114,7 +114,21 @@ Phases, each fatal on failure:
    /select/logsql/stats_query_range (`error | stats by (app) count()`,
    step 1h), each equal to the same handler with no runner and through
    the default runner, one scan and one count launch a part.  The scan,
-   the gated scan and the count must move on this path.
+   the gated scan and the count must move on this path.  Then the
+   transform path on the routes' jsonline store (ROUTE_ROWS rows), its
+   counts zeroed right before it (`transform_queries`): an `extract`
+   feeding `stats by`, `unpack_json`, `math`, `format`, `top`,
+   `facets`, `stats` with `if`, a `_time:month` bucket and `histogram`,
+   `values` and `row_max`, `collapse_nums`, `join`, `union` and
+   `stream_context`, each through the store's default runner
+   (`vlselect.card_runner`): a cold run, whose listed launches a part
+   are checked (join, union and stream_context run queries of their
+   own: every part of theirs on the card), one warm answer equal to the
+   host executor's, and five profiled warm runs in one window for the
+   device-busy time a run; then
+   `* | stats count()` on a store whose one batch of UNFLUSHED_ROWS was
+   never flushed, which must count every row added.  The scan, the
+   gated scan and the count must move on this path.
 4. report: per-query time of the cold run (no rows built), p50 over
    warm runs without the result rows built, the time of the one warm
    run with them built (dict rows, the run held against the host
@@ -1521,10 +1535,11 @@ def parts_equal(a, b) -> str | None:
     return None
 
 
-def route_parity(seed: int) -> list:
+def route_parity(seed: int):
     """ROUTE_ROWS generator rows ingested by rows, jsonline and bulk in
-    one flush each: the three parts must be equal.  The figures of the
-    three routes."""
+    one flush each: the three parts must be equal.  (The figures of the
+    three routes, the jsonline route's store, left open for the
+    transform path.)"""
     from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
                                                            bulk_body,
                                                            generate,
@@ -1547,7 +1562,10 @@ def route_parity(seed: int) -> list:
         figs.append(fig)
         (parts[route],) = [p for pt in storage.partitions.values()
                            for p in pt.parts]
-        storage.close()
+        if route == "jsonline":
+            kept = storage
+        else:
+            storage.close()
     for route in ("jsonline", "bulk"):
         why = parts_equal(parts[route], parts["rows"])
         if why is not None:
@@ -1556,7 +1574,7 @@ def route_parity(seed: int) -> list:
     log(f"ingest routes: rows, jsonline and bulk gave equal parts of "
         f"{parts['rows'].num_rows} rows in {parts['rows'].num_blocks} "
         f"blocks")
-    return figs
+    return figs, kept
 
 
 def queries(start: int) -> list:
@@ -1726,6 +1744,143 @@ def path_queries() -> list:
     return [("regex_gated_pair", PATH_QUERY, {gpair: 1}),
             ("regex_gated_stats", PATH_QUERY + " | stats by (app) count()",
              {gpair: 1, "stats_count_seg": 1})]
+
+
+def transform_queries() -> list:
+    """The transform path on the routes' jsonline store: (name, LogsQL,
+    {kernel: launches per device part}); None where a pipe's own queries
+    (join, union, stream_context) add device parts of other shapes.
+    Every query's pipes run on the host, its filter on the card."""
+    scan, gscan = "match_scan", "match_scan_gated"
+    return [
+        ("extract_stats", 'error | extract "error <w> " '
+                          '| stats by (w) count() c', {scan: 1}),
+        ("unpack_json", "error | pack_json fields (lvl, dur, app) as j "
+                        "| unpack_json from j result_prefix u_ "
+                        "| stats by (u_lvl, u_app) count() c", {scan: 1}),
+        ("math", "error | math dur * 2 + 1 as d2, round(lat) as rl "
+                 "| stats by (rl) count() c, sum(d2) s", {scan: 1}),
+        ("format", 'quota | format "<lvl>:<uc:app> <dur>" as line '
+                   '| fields line', {gscan: 1}),
+        ("top", "error | top 5 by (app)", {scan: 1}),
+        ("facets", "quota | facets 3", {gscan: 1}),
+        ("stats_if", "error | stats by (app) count() if (lvl:error) e, "
+                     "count() total, sum(dur) if (status:200) s",
+         {scan: 1}),
+        ("stats_month", "error | stats by (_time:month, lvl) count() c",
+         {scan: 1}),
+        ("stats_host_funcs", "quota | stats by (app) histogram(status) h, "
+                             "values(lvl) limit 5 v, row_max(dur) rm",
+         {gscan: 1}),
+        ("collapse_nums", 'timeout | format "<dur>.<status> took <lat>s" '
+                          'as v | collapse_nums at v prettify '
+                          '| stats by (v) count() c', {scan: 1}),
+        ("join", "error | join by (app) (quota | stats by (app) count() "
+                 "quota_hits) | stats by (app, quota_hits) count() c",
+         None),
+        ("union", "error lvl:error | fields _msg, app | union (quota "
+                  "lvl:debug | fields _msg, app) | stats by (app) count() c",
+         None),
+        ("stream_context", "quota lvl:error dur:<100 | stream_context "
+                           "before 2 after 1 | fields _time, _msg, app",
+         None),
+    ]
+
+
+UNFLUSHED_ROWS = 20_000       # rows of the transform path's unflushed batch
+TRANSFORM_BUSY_RUNS = 5       # warm runs in a transform query's profiled window
+
+
+def transform_path(rstore, tenants, wrappers, kernel_names) -> tuple:
+    """The transform path: each of `transform_queries` on the routes'
+    jsonline store through the store's default runner on the card
+    (vlselect.card_runner), a cold run and one warm answer held against
+    the host executor, every part on the card; then `* | stats count()`
+    on a store whose one batch was never flushed, which must count every
+    row added.  (report rows, launches by kernel)."""
+    import torch
+    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
+                                                           generate,
+                                                           today_start_ns)
+    from victorialogs_tpu_torch.engine.searcher import (run_query,
+                                                        run_query_collect)
+    from victorialogs_tpu_torch.server.vlselect import card_runner
+    from victorialogs_tpu_torch.storage.log_rows import LogRows
+    from victorialogs_tpu_torch.storage.storage import Storage
+    for w in wrappers:
+        w.launches = 0
+    report = []
+
+    def one(name, storage, q, kernels, want_rows=None):
+        runner = card_runner(storage)
+        parts = runner.stats_counters
+        t0 = time.perf_counter()
+        want = run_query_collect(storage, tenants, q, runner=None)
+        t_host = time.perf_counter() - t0
+
+        def warm_run():
+            run_query(storage, tenants, q, lambda br: None, runner=runner)
+
+        before = launch_counts(wrappers, parts)
+        t0 = time.perf_counter()
+        warm_run()
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        if kernels is not None:
+            dev_parts = check_launches(f"transform {name}", wrappers, parts,
+                                       before, kernels)
+        else:
+            dev_parts = parts["device_parts"] - before["device_parts"]
+            if parts["host_parts"] != before["host_parts"] or \
+                    dev_parts < 1 or not any(
+                        w.launches > before[w.__name__] for w in wrappers):
+                fail(f"transform {name}: {dev_parts} parts on the card, "
+                     f"{parts['host_parts'] - before['host_parts']} on "
+                     f"the host, no launch")
+        t0 = time.perf_counter()
+        got = run_query_collect(storage, tenants, q, runner=runner)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        if got != want or not want or (want_rows is not None and
+                                       got != want_rows):
+            fail(f"transform {name}: {len(got)} rows on the card, "
+                 f"{len(want)} from the host executor")
+        # a one-part run's few launches can come back empty from the
+        # profiler: one window over TRANSFORM_BUSY_RUNS runs, per run
+        wall, busy = busy_share(lambda: [warm_run() for _ in
+                                         range(TRANSFORM_BUSY_RUNS)])
+        wall /= TRANSFORM_BUSY_RUNS
+        busy = None if busy is None else busy / TRANSFORM_BUSY_RUNS
+        row = {"query": q, "rows_out": len(got), "device_parts": dev_parts,
+               "host_s": t_host, "device_cold_s": t_cold,
+               "device_collect_p50_s": t_warm, "profiled_wall_s": wall,
+               "device_busy_s": busy, "phase": "transform"}
+        log(f"transform {name}: {len(got)} rows from {dev_parts} device "
+            f"parts, equal to the host executor ({t_host:.3f} s); device "
+            f"cold {t_cold:.3f} s (no rows built), warm {t_warm:.3f} s "
+            f"with rows built; profiled warm runs {wall * 1e3:.2f} ms "
+            f"wall a run, device busy a run "
+            f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}")
+        report.append(row)
+
+    for name, q, kernels in transform_queries():
+        one(name, rstore, q, kernels)
+    # a batch added and never flushed: an in-memory part on the card
+    ustore = Storage(device="cuda")
+    lr = LogRows(stream_fields=INGEST_STREAM_FIELDS)
+    for ts, fields in generate(UNFLUSHED_ROWS, 17, today_start_ns(),
+                               NS_PER_DAY // 2):
+        lr.add(tenants[0], ts, fields)
+    ustore.must_add_rows(lr)
+    (upt,) = ustore.partitions.values()
+    if len(upt._pending) != 1 or upt.parts:
+        fail("the unflushed store's batch was flushed")
+    one("unflushed_count", ustore, "* | stats count() c",
+        {"stats_count_seg": 1}, [{"c": str(UNFLUSHED_ROWS)}])
+    card_runner(ustore).close()
+    ustore.close()
+    card_runner(rstore).close()
+    return report, {n: w.launches for n, w in zip(kernel_names, wrappers)}
 
 
 def launch_counts(wrappers, parts) -> dict:
@@ -1975,7 +2130,8 @@ def main() -> int:
         fail(f"{counters['py_chunks']} chunks of the generator's bodies "
              f"were parsed in Python")
     t0 = time.perf_counter()
-    ingest_figs += route_parity(seed=13)
+    route_figs, rstore = route_parity(seed=13)
+    ingest_figs += route_figs
     log(f"ingest routes: {time.perf_counter() - t0:.1f} s")
     tenants = [TenantID(0, 0)]
     runner = TorchBatchRunner(device="cuda")
@@ -2217,6 +2373,24 @@ def main() -> int:
         f"{pparts}; {time.perf_counter() - t_phase:.1f} s")
     prunner.close()
     pstore.close()
+
+    # phase 3, the transform path on the routes' jsonline store: the
+    # transform and auxiliary pipes, the host-only stats functions, `if`
+    # and calendar buckets behind filters on the card, then an unflushed
+    # batch; its counts zeroed first
+    t_phase = time.perf_counter()
+    trows, tlaunches = transform_path(rstore, tenants, wrappers,
+                                      [w.__name__ for w in wrappers])
+    rstore.close()
+    report += trows
+    log(f"transform path launches: {tlaunches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for w in (K.match_scan, K.match_scan_gated, stats_count_seg):
+        if tlaunches[w.__name__] == 0:
+            fail(f"{w.__name__} was not launched on the transform path")
+    for n, c in tlaunches.items():
+        if n in launches:
+            launches[n] += c
 
     # phase 4: kernels at the main-path shapes
     t_phase = time.perf_counter()

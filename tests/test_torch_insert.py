@@ -59,9 +59,13 @@ def _port():
 def _jax_flushes_only_when_asked(monkeypatch):
     """The JAX package's flusher thread flushes on its own once more
     than MAX_INMEMORY_PARTS batches are buffered, at a moment of its
-    choosing; raised here, every JAX part comes from debug_flush, as
-    every port part comes from its flush."""
+    choosing, and the port's add flushes past its own
+    MAX_INMEMORY_PARTS; raised in both here, every part comes from
+    debug_flush (tests/test_torch_unflushed.py holds the in-call
+    flush)."""
+    from victorialogs_tpu_torch.storage import storage as TS
     monkeypatch.setattr(JDD, "MAX_INMEMORY_PARTS", 1 << 30)
+    monkeypatch.setattr(TS, "MAX_INMEMORY_PARTS", 1 << 30)
 
 
 @pytest.fixture(scope="module")

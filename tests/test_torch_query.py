@@ -17,9 +17,9 @@ longer than the staging width (settled on the host), the planner's
 bloom gate (a bloom leaf ANDed with a scan is one `gscan` node whose
 masks equal the unfused `and(bloom, scan)` program's; a leaf that is
 not a scan goes ungated and still returns the JAX package's rows),
-pipes, stats functions and buckets still outside the port raising
-NotImplementedError (tests/test_torch_pipes.py holds the ported pipes
-to the JAX package), and a check
+pipes, stats functions and buckets that were outside earlier slices
+parsing as in the JAX package (tests/test_torch_pipes.py and
+tests/test_torch_transform.py hold the pipes' rows to it), and a check
 that no module of the port and no line of chip_smoke.py imports jax or
 victorialogs_tpu.
 """
@@ -377,8 +377,10 @@ def test_long_values_settle_on_host():
     "foo | stats by (_time:week) count()",
 ])
 def test_outside_the_slice_raises(q):
-    with pytest.raises(NotImplementedError):
-        parse_query(q)
+    """These were outside earlier slices (NotImplementedError); each now
+    parses to the JAX package's query."""
+    from victorialogs_tpu.logsql.parser import parse_query as jax_parse
+    assert parse_query(q).to_string() == jax_parse(q).to_string()
 
 
 def test_runner_defaults_to_cuda():

@@ -113,6 +113,21 @@ class BlockResult:
         return self._restrict_set is not None and \
             name not in self._restrict_set
 
+    @property
+    def timestamps(self) -> list | None:
+        """The rows' timestamps as ints, or None (see timestamps_np)."""
+        ts = self.timestamps_np()
+        return None if ts is None else ts.tolist()
+
+    def has_column(self, name: str) -> bool:
+        """Whether the batch holds `name` (a stored block: its virtual
+        fields, consts and columns)."""
+        if self._restrict_set is not None:
+            return name in self._restrict_set
+        if name in self._cols:
+            return True
+        return self._bs is not None and self._bs.has_column(name)
+
     def timestamps_np(self) -> np.ndarray | None:
         """int64 timestamps of the rows, or None for a batch that holds
         none (built by a pipe from string columns)."""

@@ -53,6 +53,11 @@ class BlockSearch:
         return list(self.consts()) + self.part.block_col_names(
             self.block_idx)
 
+    def has_column(self, name: str) -> bool:
+        if name in ("_time", "_stream", "_stream_id"):
+            return True
+        return name in self.consts() or self.column_meta(name) is not None
+
     def values(self, name: str) -> list[str]:
         """Decoded string values of a column (virtual columns included);
         an absent field reads as ''."""

@@ -25,6 +25,10 @@ the rows at or above the part's k-th best key, or None, and then the
 part runs `run_part`.  The walk stays serial, so the sort pipe sees the
 surviving rows in the order the host executor would.
 
+The storage-backed pipes (`join`, `union`, `stream_context`) get the
+storage, tenants and runner before the processors are built, and run
+their own queries through `run_query_collect_columns` with that runner.
+
 The walk stops once the pipe chain reports itself done (a satisfied
 `limit`): it checks before each part's filter or stats program and
 before each block it writes, so a query answered from its first part
@@ -183,6 +187,10 @@ def run_query(storage, tenants, q: Query | str, write_block,
         tenants = [tenants]
     tenants = tuple(tenants)
     init_subqueries(storage, tenants, q, runner)
+    # join, union and stream_context run their own queries
+    for p in q.pipes:
+        if hasattr(p, "init_with_storage"):
+            p.init_with_storage(storage, tenants, runner)
     min_ts, max_ts = q.get_time_range()
     if min_ts != MIN_TS and max_ts != MAX_TS:
         # rate() and rate_sum() divide by the time filter's seconds

@@ -34,6 +34,7 @@ executor's.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,6 +71,12 @@ class _Staged:
 
 
 _UNSTAGEABLE = _Staged(None, None, 4096)
+
+
+def _drop_staged(cache_ref, uid) -> None:
+    cache = cache_ref()
+    if cache is not None:
+        cache.drop_part(uid)
 
 
 def multibyte_rows(part, field: str, layout) -> np.ndarray:
@@ -152,7 +159,17 @@ class TorchBatchRunner:
         return got
 
     def layout(self, part):
-        return self._cached((part.uid, "layout"), lambda: part_layout(part))
+        """The part's layout; every staging of a part asks for it first,
+        so its first build ties the part's entries to the part's life:
+        once a flush drops an in-memory part, its tensors go too."""
+        key = (part.uid, "layout")
+        got = self.cache.get(key)
+        if got is None:
+            got = part_layout(part)
+            self.cache.put(key, got)
+            weakref.finalize(part, _drop_staged, weakref.ref(self.cache),
+                             part.uid)
+        return got
 
     def stage_fused_field(self, part, field: str, layout):
         return self._stage((part.uid, "field", field), lambda:

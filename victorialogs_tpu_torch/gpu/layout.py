@@ -11,7 +11,8 @@ bytes are truncated; their rows are re-checked on the host.
 A part's columns are staged over all its blocks at once by
 gpu/fused.py (`stage_layout_column`); staged tensors are LRU-cached
 across queries by (part uid, kind, ...) under a device-byte budget
-(`StagingCache`).
+(`StagingCache`); a part's entries go when the part is dropped
+(`drop_part`, called as a flush replaces an in-memory part).
 """
 
 from __future__ import annotations
@@ -91,6 +92,29 @@ class StagingCache:
         self._lru: OrderedDict = OrderedDict()
         self._bytes = 0
         self._mu = threading.Lock()
+        self._dropped: list = []     # part uids to drop at the next call
+
+    def _drop_locked(self) -> None:
+        while self._dropped:
+            uid = self._dropped.pop()
+            for key in [k for k in self._lru if k[0] == uid]:
+                self._bytes -= self._cost(self._lru.pop(key))
+
+    def drop_part(self, uid) -> None:
+        """Release every entry of part `uid`.  It may run from a garbage
+        collection inside another call of this cache, so it only queues
+        the uid when the lock is taken."""
+        self._dropped.append(uid)
+        if self._mu.acquire(blocking=False):
+            try:
+                self._drop_locked()
+            finally:
+                self._mu.release()
+
+    def part_uids(self) -> set:
+        with self._mu:
+            self._drop_locked()
+            return {k[0] for k in self._lru}
 
     @staticmethod
     def _cost(v) -> int:
@@ -98,6 +122,7 @@ class StagingCache:
 
     def get(self, key):
         with self._mu:
+            self._drop_locked()
             got = self._lru.get(key)
             if got is not None:
                 self._lru.move_to_end(key)
@@ -106,6 +131,7 @@ class StagingCache:
     def put(self, key, value) -> None:
         cost = self._cost(value)
         with self._mu:
+            self._drop_locked()
             if key in self._lru:
                 return
             self._lru[key] = value
@@ -135,3 +161,4 @@ class StagingCache:
         with self._mu:
             self._lru.clear()
             self._bytes = 0
+            self._dropped.clear()

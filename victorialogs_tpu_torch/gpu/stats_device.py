@@ -116,7 +116,7 @@ def device_stats_spec(q) -> StatsSpec | None:
     """The device shape of a query whose first pipe is `stats`, or None:
     at most one `_time:<duration>` bucket, plain fields (dict/const
     columns, decided per part when staged), numeric buckets, and every
-    function with a device partial."""
+    function with a device partial and no `if (...)` guard."""
     if not q.pipes or not isinstance(q.pipes[0], PipeStats):
         return None
     ps = q.pipes[0]
@@ -124,6 +124,8 @@ def device_stats_spec(q) -> StatsSpec | None:
     n_time = 0
     for b in ps.by:
         if b.name == "_time" and b.bucket:
+            if b.bucket.lower() in ("week", "month", "year"):
+                return None         # calendar buckets have no fixed step
             d = parse_duration(b.bucket)
             if not d or d <= 0:
                 return None
@@ -149,6 +151,8 @@ def device_stats_spec(q) -> StatsSpec | None:
         by.append(ByKey("field", name=b.name))
     funcs = []
     for fn in ps.funcs:
+        if fn.iff is not None:
+            return None             # the guard's rows are the host's
         spec = _func_spec(fn)
         if spec is None:
             return None

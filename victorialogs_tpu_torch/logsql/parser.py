@@ -10,8 +10,8 @@ function filters (`in`, `contains_all`, `contains_any`, `seq`,
 `contains_*` also over a `(subquery | fields x)`), `{...}` stream
 filters, `_stream_id:`, `_time:` filters (ranges, durations, numeric
 unix bounds, `day_range`, `week_range`, `offset`), a leading
-`options(...)` and the trailing pipes.  Pipes outside the port raise
-NotImplementedError instead of parsing into something else.
+`options(...)` and the trailing pipes (logsql/pipes.py and the
+modules that register pipes there).
 """
 
 from __future__ import annotations
@@ -96,6 +96,18 @@ def parse_query(s: str, timestamp: int | None = None) -> Query:
     if not lex.is_end():
         raise ParseError(f"unexpected trailing token {lex.token!r} "
                          f"near ...{lex.context()}")
+    return q
+
+
+def parse_query_in_parens(lex: Lexer) -> Query:
+    """`(query)` of the join and union pipes."""
+    if not lex.is_keyword("("):
+        raise ParseError("missing '('")
+    lex.next_token()
+    q = _parse_query_internal(lex)
+    if not lex.is_keyword(")"):
+        raise ParseError("missing ')' after query")
+    lex.next_token()
     return q
 
 

@@ -31,16 +31,21 @@ state of `sort` and `uniq` is charged to a memory budget
 (gpu/sort_device.py): the processor then sees a superset of the rows
 that can reach its output, in the same order.
 
-Stats functions: count, count_empty, count_uniq, sum, sum_len, min,
-max, avg, median, quantile, rate and rate_sum.  Other LogsQL stats
-functions, per-function `if (...)` guards, calendar `_time` buckets and
-the transform and auxiliary pipes (`math`, `extract`, `unpack_json`,
-`join`, ...) raise NotImplementedError; an unknown function name
-raises ParseError.
+Stats functions: every one of logsql/stats_funcs.py, each optionally
+guarded by `if (filter)` (it then sees only the rows the filter keeps).
+`_time` buckets are durations or the calendar's `week` (starting on
+Monday), `month` and `year` (`truncate_timestamps`).
+
+The transform pipes (`extract`, `format`, `math`, `unpack_*`, `top`,
+...; logsql/pipes_transform.py) and the auxiliary ones (`join`,
+`union`, `stream_context`, `collapse_nums`, ...; logsql/pipes_aux.py)
+register their parsers here (`register_pipe`).  An unknown pipe or
+stats function name raises ParseError.
 """
 
 from __future__ import annotations
 
+import datetime
 import heapq
 import math
 from dataclasses import dataclass, field as dc_field
@@ -116,12 +121,11 @@ class ByField:
                 s += f" offset {self.bucket_offset}"
         return s
 
-    def step_ns(self) -> int:
-        return parse_duration(self.bucket)
-
     def offset_ns(self) -> int:
-        return parse_duration(self.bucket_offset) if self.bucket_offset \
-            else 0
+        """The offset in ns; 0 when absent or not a duration."""
+        d = parse_duration(self.bucket_offset) if self.bucket_offset \
+            else None
+        return d if d is not None else 0
 
     def num_step(self) -> tuple[float, float] | None:
         """(step, offset) of a numeric bucket, or None when the step is
@@ -149,7 +153,7 @@ class PipeStats(Pipe):
         # stats replaces the rows: only its keys and inputs are read
         out = {b.name for b in self.by}
         for fn in self.funcs:
-            out |= set(fn.fields)
+            out |= fn.needed_fields()
         return out
 
     def make_processor(self, next_p: Processor) -> "StatsProcessor":
@@ -162,6 +166,48 @@ def _factorize(vals) -> tuple[np.ndarray, list]:
     codes = np.fromiter((mapping.setdefault(v, len(mapping)) for v in vals),
                         dtype=np.int64, count=len(vals))
     return codes, list(mapping)
+
+
+_NS_DAY = 86400 * 1_000_000_000
+
+
+def _calendar_start(ts: int, name: str, off: int) -> int:
+    """The start of `ts`'s month or year (`name`) after moving it back by
+    `off` ns, plus `off`; through float seconds rounded to microseconds,
+    as in the JAX package."""
+    utc = datetime.timezone.utc
+    dt = datetime.datetime.fromtimestamp((ts - off) / 1e9, tz=utc)
+    start = datetime.datetime(dt.year, dt.month if name == "month" else 1,
+                              1, tzinfo=utc)
+    return int(start.timestamp()) * 1_000_000_000 + off
+
+
+def truncate_timestamps(ts: np.ndarray, b: ByField) -> np.ndarray | None:
+    """The start of each int64 timestamp's `_time` bucket: fixed-size
+    buckets and the calendar's weeks (from Monday), months and years;
+    None when the bucket is neither.  Months and years come from each
+    row's UTC day; a row in the last millisecond of its day takes
+    `_calendar_start`, whose microsecond rounding may carry it into the
+    next day."""
+    name = b.bucket.lower()
+    off = b.offset_ns()
+    if name in ("month", "year"):
+        t = ts - off
+        day = t // _NS_DAY
+        unit = "datetime64[M]" if name == "month" else "datetime64[Y]"
+        out = day.astype("datetime64[D]").astype(unit).astype(
+            "datetime64[D]").astype(np.int64) * _NS_DAY + off
+        for i in np.nonzero(t - day * _NS_DAY >= _NS_DAY - 1_000_000)[0]:
+            out[i] = _calendar_start(int(ts[i]), name, off)
+        return out
+    if name == "week":
+        # epoch day 0 was a Thursday
+        off, step = off + 4 * _NS_DAY, 7 * _NS_DAY
+    else:
+        step = parse_duration(b.bucket)
+        if not step:
+            return None
+    return (ts - off) // step * step + off
 
 
 def bucket_value(v: str, step: float, off: float) -> str:
@@ -178,18 +224,20 @@ class StatsProcessor(Processor):
         super().__init__(next_p)
         self.pipe = pipe
         self.groups: dict[tuple, list] = {}   # key -> state per func
+        self.budget = MemoryBudget(0.3, "stats")
+        for fn in pipe.funcs:
+            fn.budget = self.budget
 
     def _key_codes(self, br: BlockResult, b: ByField):
         """(int64 code per row, distinct key values) of one by-field."""
         if b.bucket and b.name == "_time":
-            step, off = b.step_ns(), b.offset_ns()
             ts = br.timestamps_np()
-            if ts is None or not step:
-                # no timestamps (a batch a pipe built) or no step: the
-                # rows' `_time` values are the keys, as in the reference
+            starts = None if ts is None else truncate_timestamps(ts, b)
+            if starts is None:
+                # no timestamps (a batch a pipe built) or no bucket: the
+                # rows' `_time` values are the keys, as in the JAX package
                 return _factorize(br.column("_time"))
-            uniq, inv = np.unique((ts - off) // step * step + off,
-                                  return_inverse=True)
+            uniq, inv = np.unique(starts, return_inverse=True)
             return inv.reshape(-1), format_rfc3339_many(uniq)
         ns = b.num_step() if b.bucket else None
         if ns is not None:
@@ -239,6 +287,7 @@ class StatsProcessor(Processor):
         if states is None:
             states = self.groups[key] = [fn.new_state()
                                          for fn in self.pipe.funcs]
+            self.budget.add(sum(len(k) for k in key) + 80)
         return states
 
     def write_block(self, br: BlockResult) -> None:
@@ -246,10 +295,13 @@ class StatsProcessor(Processor):
             return
         groups = self._row_groups(br)
         cols = [fn.block_cols(br) for fn in self.pipe.funcs]
+        masks = [if_mask(fn.iff, br) for fn in self.pipe.funcs]
         for key, idxs in groups:
             states = self._states(key)
             for k, fn in enumerate(self.pipe.funcs):
-                states[k] = fn.update(states[k], cols[k], idxs)
+                use = idxs if masks[k] is None else \
+                    [i for i in idxs if masks[k][i]]
+                states[k] = fn.update(states[k], cols[k], use)
 
     def absorb_partials(self, key: tuple, states: list) -> None:
         """Merge one group's partial states (a device cell, one per
@@ -257,6 +309,7 @@ class StatsProcessor(Processor):
         cur = self.groups.get(key)
         if cur is None:
             self.groups[key] = states
+            self.budget.add(sum(len(k) for k in key) + 80)
             return
         for k, fn in enumerate(self.pipe.funcs):
             cur[k] = fn.merge(cur[k], states[k])
@@ -278,6 +331,37 @@ class StatsProcessor(Processor):
         self.next_p.write_block(BlockResult.from_columns(cols)
                                 if any(cols.values()) else BlockResult(0))
         self.next_p.flush()
+
+
+# ---------------- `if (filter)` guards ----------------
+
+def parse_if_filter(lex):
+    """`if (filter)`, the lexer on `if`."""
+    lex.next_token()
+    if not lex.is_keyword("("):
+        raise ParseError("missing '(' after if")
+    lex.next_token()
+    from .parser import parse_filter_or
+    f = parse_filter_or(lex, "")
+    if not lex.is_keyword(")"):
+        raise ParseError("missing ')' after if filter")
+    lex.next_token()
+    return f
+
+
+def maybe_if(lex):
+    return parse_if_filter(lex) if lex.is_keyword("if") else None
+
+
+def if_str(iff) -> str:
+    return f" if ({iff.to_string()})" if iff is not None else ""
+
+
+def if_mask(iff, br: BlockResult):
+    """bool per row of the block that the guard keeps, or None."""
+    if iff is None:
+        return None
+    return iff.apply_to_values(br.column, br.nrows)
 
 
 # ---------------- fields / limit / offset ----------------
@@ -876,7 +960,7 @@ def parse_pipes(lex) -> list:
     while True:
         parse = _PIPE_PARSERS.get(lex.token.lower())
         if parse is None:
-            raise NotImplementedError(f"pipe {lex.token!r} is not supported")
+            raise ParseError(f"unknown pipe {lex.token!r}")
         lex.next_token()
         pipes.append(parse(lex))
         if not lex.is_keyword("|"):
@@ -915,19 +999,6 @@ def _parse_by_fields(lex) -> list:
     return out
 
 
-def _check_time_buckets(by: list) -> list:
-    for bf in by:
-        if bf.name == "_time" and bf.bucket and (
-                not parse_duration(bf.bucket) or
-                parse_duration(bf.bucket) <= 0 or
-                (bf.bucket_offset and
-                 parse_duration(bf.bucket_offset) is None)):
-            raise NotImplementedError(
-                f"group-by bucket {bf.to_string()!r}: only "
-                f"_time:<duration> buckets are supported")
-    return by
-
-
 def _parse_uint(lex, what: str) -> int:
     v = parse_number(lex.token)
     if math.isnan(v) or v < 0 or v != int(v):
@@ -947,6 +1018,24 @@ def _parse_field_list(lex) -> list:
         if not lex.is_keyword(","):
             return fields
         lex.next_token()
+
+
+def _parse_paren_fields(lex) -> list:
+    if not lex.is_keyword("("):
+        raise ParseError("missing '('")
+    lex.next_token()
+    out = []
+    while not lex.is_keyword(")"):
+        if lex.is_keyword(","):
+            lex.next_token()
+            continue
+        name = _parse_field_name(lex)
+        if lex.is_keyword("*") and not lex.is_skipped_space:
+            name += "*"          # wildcard: `fields (req_*)`
+            lex.next_token()
+        out.append(name)
+    lex.next_token()
+    return out
 
 
 def _parse_as_pairs(lex) -> list:
@@ -1107,18 +1196,21 @@ _STATS_FUNCS = {
     "quantile": _quantile_ctor,
     "rate": sf.StatsRate,
     "rate_sum": sf.StatsRateSum,
+    "count_uniq_hash": sf.StatsCountUniqHash,
+    "uniq_values": sf.StatsUniqValues,
+    "values": sf.StatsValues,
+    "histogram": sf.StatsHistogram,
+    "row_any": sf.StatsRowAny,
+    "row_min": sf.StatsRowMin,
+    "row_max": sf.StatsRowMax,
+    "json_values": sf.StatsJSONValues,
 }
-# LogsQL functions the slice leaves out
-_HOST_ONLY_FUNCS = ("count_uniq_hash", "uniq_values", "values", "histogram",
-                    "row_any", "row_min", "row_max", "json_values")
 
 
 def parse_stats_func(lex):
     name = lex.token.lower()
     ctor = _STATS_FUNCS.get(name)
     if ctor is None:
-        if name in _HOST_ONLY_FUNCS:
-            raise NotImplementedError(f"stats function {lex.token!r}")
         raise ParseError(f"unknown stats function {lex.token!r}")
     lex.next_token()
     if not lex.is_keyword("("):
@@ -1136,7 +1228,7 @@ def parse_stats_func(lex):
         lex.next_token()
         fn.limit = _parse_uint(lex, "limit")
     if lex.is_keyword("if"):
-        raise NotImplementedError("stats modifier 'if'")
+        fn.iff = parse_if_filter(lex)
     if lex.is_keyword("as"):
         lex.next_token()
         fn.out_name = _parse_field_name(lex)
@@ -1157,7 +1249,7 @@ def _parse_stats(lex) -> PipeStats:
     if lex.is_keyword("by") and not by:
         lex.next_token()
         by = _parse_by_fields(lex)
-    return PipeStats(_check_time_buckets(by), funcs)
+    return PipeStats(by, funcs)
 
 
 def _parse_count_shorthand(lex) -> PipeStats:
@@ -1199,3 +1291,13 @@ _PIPE_PARSERS = {
     "first": lambda lex: _parse_first_last(lex, desc=False),
     "last": lambda lex: _parse_first_last(lex, desc=True),
 }
+
+
+def register_pipe(name: str, parse_fn) -> None:
+    _PIPE_PARSERS[name] = parse_fn
+
+
+# the transform and auxiliary pipes register themselves on import, once
+# the registry exists
+from . import pipes_transform  # noqa: E402,F401
+from . import pipes_aux        # noqa: E402,F401

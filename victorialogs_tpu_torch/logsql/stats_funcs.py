@@ -8,16 +8,23 @@ built from per-cell kernel outputs (gpu/stats_device.py
 rows, so a device result equals the host executor's.
 
 Functions: count, count_empty, sum, sum_len, min, max, avg, count_uniq,
-quantile, median, rate and rate_sum.
+quantile, median, rate and rate_sum, which have device partials, and
+count_uniq_hash, uniq_values, values, histogram, row_min, row_max,
+json_values and row_any, which run on the host only.  A function may
+carry an `if (filter)` guard (`iff`): it then sees only the rows the
+filter keeps.  Functions that collect values charge the stats pipe's
+memory budget (`budget`) as their states grow.
 """
 
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
 
 from ..storage.values_encoder import _format_floats
+from ..utils.hashing import xxh64
 from .matchers import parse_number
 
 
@@ -36,6 +43,8 @@ class StatsFunc:
     name."""
 
     name = "?"
+    iff = None          # the `if (filter)` row guard, or None
+    budget = None       # the stats pipe's MemoryBudget, set by its processor
 
     def __init__(self, fields: list[str], out_name: str = ""):
         self.fields = fields
@@ -46,9 +55,21 @@ class StatsFunc:
 
     def to_string(self) -> str:
         s = f"{self.name}({', '.join(self.fields)})"
+        if self.iff is not None:
+            s += f" if ({self.iff.to_string()})"
         if self.out_name != self.default_name():
             s += f" as {self.out_name}"
         return s
+
+    def needed_fields(self) -> set:
+        out = set(self.fields)
+        if self.iff is not None:
+            out |= self.iff.needed_fields()
+        return out
+
+    def _charge(self, nbytes: int) -> None:
+        if self.budget is not None and nbytes:
+            self.budget.add(nbytes)
 
     def new_state(self):
         raise NotImplementedError
@@ -387,6 +408,7 @@ class StatsQuantile(StatsFunc):
             f"{', '.join(self.fields)})"
 
     def to_string(self):
+        # quantile and median render no `if` guard, as in the JAX package
         s = self.default_name()
         if self.out_name != self.default_name():
             s += f" as {self.out_name}"
@@ -453,3 +475,289 @@ class StatsRateSum(StatsSum):
         if self.step_seconds > 0:
             v /= self.step_seconds
         return format_number(v)
+
+
+# ---------------- host-only functions ----------------
+
+class StatsCountUniqHash(StatsCountUniq):
+    """count_uniq over the xxhash64 of each value tuple: the state holds
+    8-byte hashes instead of the values."""
+
+    name = "count_uniq_hash"
+
+    def update(self, state, cols, idxs):
+        if self.limit and len(state) >= self.limit:
+            return state
+        for i in idxs:
+            key = tuple(c[i] for c in cols)
+            if any(k != "" for k in key):
+                state.add(xxh64("\x00".join(key).encode("utf-8")))
+        return state
+
+
+def _uniq_sort_key(v: str):
+    f = parse_number(v)
+    return ((0, f) if not math.isnan(f) else (1, 0), v)
+
+
+class StatsUniqValues(StatsFunc):
+    """The distinct non-empty values as a JSON array, numbers first by
+    value, then strings."""
+
+    name = "uniq_values"
+
+    def __init__(self, fields, out_name="", limit: int = 0):
+        super().__init__(fields, out_name)
+        self.limit = limit
+
+    def new_state(self):
+        return set()
+
+    def update(self, state, cols, idxs):
+        grown = 0
+        for c in cols:
+            for i in idxs:
+                v = c[i]
+                if v != "" and v not in state:
+                    state.add(v)
+                    grown += len(v) + 56
+        self._charge(grown)
+        return state
+
+    def merge(self, a, b):
+        a |= b
+        return a
+
+    def finalize(self, state):
+        vals = sorted(state, key=_uniq_sort_key)
+        if self.limit and len(vals) > self.limit:
+            vals = vals[:self.limit]
+        return json.dumps(vals, separators=(",", ":")) if vals else ""
+
+
+class StatsValues(StatsFunc):
+    """Every value, empty ones included, as a JSON array in row order."""
+
+    name = "values"
+
+    def __init__(self, fields, out_name="", limit: int = 0):
+        super().__init__(fields, out_name)
+        self.limit = limit
+
+    def new_state(self):
+        return []
+
+    def update(self, state, cols, idxs):
+        grown = 0
+        for c in cols:
+            for i in idxs:
+                state.append(c[i])
+                grown += len(c[i]) + 48
+        self._charge(grown)
+        return state
+
+    def merge(self, a, b):
+        a.extend(b)
+        return a
+
+    def finalize(self, state):
+        vals = state
+        if self.limit and len(vals) > self.limit:
+            vals = vals[:self.limit]
+        return json.dumps(vals, separators=(",", ":")) if vals else ""
+
+
+# histogram: VictoriaMetrics vmrange buckets, 18 a decade
+_HIST_BUCKETS_PER_DECIMAL = 18
+_HIST_LOWER = 1e-9
+_HIST_UPPER = 1e18
+
+
+def _vmrange(v: float) -> str:
+    """The log-scale bucket label of v >= 0."""
+    if v < _HIST_LOWER:
+        return f"0...{_HIST_LOWER:.3e}"
+    if v > _HIST_UPPER:
+        return f"{_HIST_UPPER:.3e}...+Inf"
+    idx = math.floor(math.log10(v) * _HIST_BUCKETS_PER_DECIMAL + 1e-9)
+    lo = 10 ** (idx / _HIST_BUCKETS_PER_DECIMAL)
+    hi = 10 ** ((idx + 1) / _HIST_BUCKETS_PER_DECIMAL)
+    if v > hi:  # float rounding at a bucket edge
+        idx += 1
+        lo, hi = hi, 10 ** ((idx + 1) / _HIST_BUCKETS_PER_DECIMAL)
+    return f"{lo:.3e}...{hi:.3e}"
+
+
+def _vmrange_sort_key(r: str):
+    try:
+        return float(r.split("...", 1)[0])
+    except ValueError:
+        return math.inf
+
+
+class StatsHistogram(StatsFunc):
+    """Hits per vmrange bucket of the non-negative numbers, as a JSON
+    array in bucket order."""
+
+    name = "histogram"
+
+    def new_state(self):
+        return {}
+
+    def update(self, state, cols, idxs):
+        for c in cols:
+            for i in idxs:
+                v = parse_number(c[i]) if c[i] else math.nan
+                if math.isnan(v) or v < 0:
+                    continue
+                r = _vmrange(v)
+                state[r] = state.get(r, 0) + 1
+        return state
+
+    def merge(self, a, b):
+        for k, v in b.items():
+            a[k] = a.get(k, 0) + v
+        return a
+
+    def finalize(self, state):
+        out = [{"vmrange": r, "hits": state[r]}
+               for r in sorted(state, key=_vmrange_sort_key)]
+        return json.dumps(out, separators=(",", ":"))
+
+
+class StatsRowMin(StatsFunc):
+    """The row (all its fields, or the named ones) where the first field
+    is least, as a JSON object."""
+
+    name = "row_min"
+    _want_max = False
+
+    def __init__(self, fields, out_name=""):
+        if not fields:
+            raise ValueError(f"{self.name} needs a source field")
+        self.src_field = fields[0]
+        self.row_fields = fields[1:]
+        super().__init__(fields, out_name)
+
+    def needed_fields(self):
+        if self.row_fields:
+            return {self.src_field, *self.row_fields}
+        return {"*"}
+
+    def block_cols(self, br):
+        names = self.row_fields or br.column_names()
+        return [br.column(self.src_field),
+                [(n, br.column(n)) for n in names]]
+
+    def new_state(self):
+        return None         # (source value, row dict)
+
+    def _better(self, a: str, b: str) -> bool:
+        return _num_or_str_less(b, a) if self._want_max \
+            else _num_or_str_less(a, b)
+
+    def update(self, state, cols, idxs):
+        src, row_cols = cols
+        best = state
+        for i in idxs:
+            v = src[i]
+            if v == "":
+                continue
+            if best is None or self._better(v, best[0]):
+                best = (v, {n: c[i] for n, c in row_cols if c[i] != ""})
+        return best
+
+    def merge(self, a, b):
+        if a is None:
+            return b
+        if b is None:
+            return a
+        return a if self._better(a[0], b[0]) else b
+
+    def finalize(self, state):
+        return json.dumps(state[1], separators=(",", ":")) \
+            if state is not None else ""
+
+
+class StatsRowMax(StatsRowMin):
+    name = "row_max"
+    _want_max = True
+
+
+class StatsJSONValues(StatsFunc):
+    """Each row (all its fields, or the named ones) as a JSON object,
+    collected into one JSON array."""
+
+    name = "json_values"
+
+    def __init__(self, fields, out_name="", limit: int = 0):
+        super().__init__(fields, out_name)
+        self.limit = limit
+
+    def needed_fields(self):
+        return set(self.fields) if self.fields else {"*"}
+
+    def block_cols(self, br):
+        names = self.fields or br.column_names()
+        return [[(n, br.column(n)) for n in names]]
+
+    def new_state(self):
+        return []
+
+    def update(self, state, cols, idxs):
+        if self.limit and len(state) >= self.limit:
+            return state
+        grown = 0
+        for i in idxs:
+            item = json.dumps({n: c[i] for n, c in cols[0]},
+                              separators=(",", ":"), ensure_ascii=False)
+            state.append(item)
+            grown += len(item) + 48
+            if self.limit and len(state) >= self.limit:
+                break
+        self._charge(grown)
+        return state
+
+    def merge(self, a, b):
+        a.extend(b)
+        return a
+
+    def finalize(self, state):
+        items = state
+        if self.limit and len(items) > self.limit:
+            items = items[:self.limit]
+        return "[" + ",".join(items) + "]"
+
+
+class StatsRowAny(StatsFunc):
+    """The first row a group sees (all its fields, or the named ones), as
+    a JSON object."""
+
+    name = "row_any"
+
+    def default_name(self):
+        return "row_any(*)" if not self.fields else super().default_name()
+
+    def needed_fields(self):
+        out = super().needed_fields()
+        return out if self.fields else out | {"*"}
+
+    def new_state(self):
+        return None
+
+    def block_cols(self, br):
+        names = self.fields or br.column_names()
+        return [(n, br.column(n)) for n in names]
+
+    def update(self, state, cols, idxs):
+        if state is not None or not idxs:
+            return state
+        i = idxs[0]
+        return {f: c[i] for f, c in cols if c[i] != ""}
+
+    def merge(self, a, b):
+        return a if a is not None else b
+
+    def finalize(self, state):
+        return json.dumps(state, separators=(",", ":")) \
+            if state is not None else ""

@@ -106,8 +106,6 @@ def parse_common_args(args, headers) -> tuple[Query, list]:
         q = parse_query(qs, timestamp=ts)
     except (ParseError, ValueError) as e:
         raise HTTPError(400, f"cannot parse query: {e}")
-    except NotImplementedError as e:
-        raise HTTPError(501, f"not supported by this build: {e}")
     start = _parse_time_arg(args.get("start", ""), MIN_TS)
     end = _parse_time_arg(args.get("end", ""), MAX_TS, end=True)
     if start != MIN_TS or end != MAX_TS:

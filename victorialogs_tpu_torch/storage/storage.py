@@ -3,9 +3,13 @@
 Each partition pairs a stream index (stream id -> canonical tags, the
 `_stream:{...}` resolution source) with the list of parts its flushes
 minted.  Every batch added (rows or columns) is built into blocks at
-once and buffered; `debug_flush` merges the buffered block lists into
-ONE part per partition (storage/merge.py).  There are no background
-threads, so `close()` only drops state.
+once and buffered as a part of its own, which queries see at once
+(`snapshot_parts` lists the buffered parts first, then the flushed
+ones); a flush merges the buffered block lists into ONE part per
+partition (storage/merge.py).  `debug_flush` flushes every partition,
+and an add flushes its partition once more than MAX_INMEMORY_PARTS
+batches wait.  There are no background threads, so `close()` only
+drops state.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from .part import Part
 from .stream_filter import parse_stream_tags
 
 NSECS_PER_DAY = 86400 * 1_000_000_000
+MAX_INMEMORY_PARTS = 8       # buffered batches a partition holds unflushed
 
 
 def day_from_ts(ts_ns: int) -> int:
@@ -29,14 +34,14 @@ def day_from_ts(ts_ns: int) -> int:
 
 
 class Partition:
-    """One UTC day: stream index + flushed parts + the block lists of
-    the batches added since the last flush."""
+    """One UTC day: stream index + flushed parts + one in-memory part
+    for each batch added since the last flush."""
 
     def __init__(self, day: int):
         self.day = day
         self.streams: dict = {}            # StreamID -> canonical tags
         self.parts: list[Part] = []
-        self._pending: list[list] = []     # one block list a batch
+        self._pending: list[Part] = []     # one part a batch
 
     def must_add_rows(self, lr: LogRows, idxs=None) -> None:
         """Build rows `idxs` of `lr` (all of them when None)."""
@@ -63,16 +68,18 @@ class Partition:
 
     def _add_blocks(self, blocks: list) -> None:
         if blocks:
-            self._pending.append(blocks)
+            self._pending.append(Part(blocks))
+            if len(self._pending) > MAX_INMEMORY_PARTS:
+                self.flush()
 
     def flush(self) -> None:
-        """Merge the buffered batches into one part."""
+        """Merge the buffered batches into one part (a lone batch's part
+        becomes the flushed part as it is)."""
         pending, self._pending = self._pending, []
         if not pending:
             return
-        blocks = pending[0] if len(pending) == 1 \
-            else list(merge_block_streams(pending))
-        self.parts.append(Part(blocks))
+        self.parts.append(pending[0] if len(pending) == 1 else Part(
+            list(merge_block_streams([p.blocks for p in pending]))))
 
     def search_stream_ids(self, tenants, sf) -> set:
         """Stream ids of `tenants` whose tags match the stream filter
@@ -82,7 +89,9 @@ class Partition:
                 if sid.tenant in ts and sf.matches(parse_stream_tags(tags))}
 
     def snapshot_parts(self) -> list[Part]:
-        return list(self.parts)
+        """The parts a query walks: the unflushed batches' in-memory
+        parts, oldest first, then the flushed parts."""
+        return self._pending + self.parts
 
 
 class Storage:

@@ -14,6 +14,10 @@ import xxhash
 _U64 = (1 << 64) - 1
 
 
+def xxh64(data: bytes, seed: int = 0) -> int:
+    return xxhash.xxh64_intdigest(data, seed)
+
+
 def splitmix64_np(x: np.ndarray) -> np.ndarray:
     """Vectorized splitmix64 over a uint64 numpy array."""
     x = (x + np.uint64(0x9E3779B97F4A7C15))
