@@ -36,9 +36,9 @@ Phases, each fatal on failure:
    both outputs, the counts of definite, maybe and gated-out rows
    printed; and the fold scan of an `i()` leaf with and without its
    multibyte mask (`check_fold`).
-3. main path: ingest 4M generated rows as a user sends them, through
+3. main path: ingest 2M generated rows as a user sends them, through
    /insert/jsonline (`handle_jsonline`, the generator's JSON-lines
-   bodies) into a Storage with 4 flushes, which must give 4 parts of 1M
+   bodies) into a Storage with 2 flushes, which must give 2 parts of 1M
    rows in 64 blocks each with no chunk of the bodies parsed in Python
    (`INGEST_COUNTERS["py_chunks"]` 0); ingest ROUTE_ROWS generator rows
    by rows, by /insert/jsonline and by Elasticsearch _bulk
@@ -67,7 +67,8 @@ Phases, each fatal on failure:
    executor's rows serialized by json.dumps, and /select/logsql/query
    (`handle_query`) at its default limit of 1000, whose chunks must
    equal the same handler's with no runner (the host executor), which
-   must run exactly one device part (the walk stops) and which, given
+   must run only the parts the dispatch window submits before its first
+   harvest (VL_INFLIGHT of them at most: the walk stops) and which, given
    no runner at all, must answer the same through the storage's own
    runner on the card (as must each stats query's handler); `phrase`
    also answers with `| fields _time, lvl, dur | limit 5 | offset 2`.  Each stats query
@@ -128,7 +129,25 @@ Phases, each fatal on failure:
    device-busy time a run; then
    `* | stats count()` on a store whose one batch of UNFLUSHED_ROWS was
    never flushed, which must count every row added.  The scan, the
-   gated scan and the count must move on this path.
+   gated scan and the count must move on this path.  Then the packed
+   path, its counts zeroed right before it (`packed_path`): a store of
+   PACK_DAYS UTC days, each of PACK_FLUSHED flushed parts and up to 8
+   batches never flushed, every one PACK_PART_ROWS generator rows sent
+   as a /insert/jsonline body, and on it `packed_queries` (the bloom row
+   query, time-bucket, value, sort, count and quantile stats over
+   `_time:4d`) through the store's default runner at VL_INFLIGHT/
+   VL_PACK_PARTS 1/1 (the serial walk) and 4/8: every answer equal to
+   the host executor's with every part on the card, and at 4/8 to the
+   1/1 answer row for row (the row query's NDJSON export byte for
+   byte); at each setting its units, packed units, launches (each
+   kernel its listed times a unit, the units those of
+   gpu/pipeline.iter_pack_groups: P small parts of one pad bucket cost
+   ceil(P/8)), warm p50, device-busy time and one traced run's span
+   totals (submit, device_sync, emit, ...).  The scan, the gated scan,
+   the count and the value reduction must move on this path; the count
+   at 8 segments x 2,440 cells and the value reduction over the
+   members' folded cells are held against their plain versions on one
+   pack and timed beside their bounds (`at_pack` of their kernel rows).
 4. report: per-query time of the cold run (no rows built), p50 over
    warm runs without the result rows built, the time of the one warm
    run with them built (dict rows, the run held against the host
@@ -175,9 +194,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ROWS = 4_000_000              # main-path rows, ingested with 4 flushes
+ROWS = 2_000_000              # main-path rows, ingested with 2 flushes
+FLUSHES = 2                   # parts of the main store, 1M rows each
 WARM_RUNS = 5                 # timed warm runs per query, no rows built
-WARM_NDJSON_RUNS = 1          # timed warm runs of a row query's export
 FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
 # per-query figures of the last-but-one line beside the kernels
 ANSWER_KEYS = ("query", "rows_out", "host_s", "device_p50_s",
@@ -1883,6 +1902,324 @@ def transform_path(rstore, tenants, wrappers, kernel_names) -> tuple:
     return report, {n: w.launches for n, w in zip(kernel_names, wrappers)}
 
 
+PACK_DAYS = 4                 # UTC days of the packed path's store
+PACK_PART_ROWS = 8192         # rows of each of its bodies and parts
+PACK_FLUSHED = 32             # flushed parts a day
+PACK_UNFLUSHED = (8, 5, 3, 1)  # batches a day never flushed
+PACK_SETTINGS = (("1", "1"), ("4", "8"))   # (VL_INFLIGHT, VL_PACK_PARTS)
+PACK_WARM_RUNS = 3            # timed warm runs a query and setting
+
+
+def packed_queries() -> list:
+    """(name, LogsQL, {kernel: launches per dispatch unit}) of the packed
+    path, each over the store's four days: the main row, stats,
+    value-stats, sort and count families, and the quantile shape whose
+    2,440 cells a member put a pack's count past the shared bins."""
+    scan, count, values = "match_scan", "stats_count_seg", "stats_values"
+    return [
+        ("pk_bloom", "_time:4d quota", {"match_scan_gated": 1}),
+        ("pk_time_stats", "_time:4d error | stats by (_time:1h) count()",
+         {scan: 1, count: 1}),
+        ("pk_value_stats", "_time:4d error | stats by (lvl) count(), "
+                           "sum(dur), avg(dur), min(dur), max(dur)",
+         {scan: 1, values: 1}),
+        ("pk_sort", "_time:4d error | sort by (dur) desc limit 10",
+         {scan: 1}),
+        ("pk_count", "_time:4d | stats count()", {count: 1}),
+        ("pk_quantile", "_time:4d | stats by (app) quantile(0.99, status) "
+                        "p99, median(status) p50", {count: 1}),
+    ]
+
+
+def packed_store(tenants):
+    """PACK_DAYS UTC days before today, each of PACK_FLUSHED flushed
+    parts and then PACK_UNFLUSHED[d] batches never flushed, every one
+    PACK_PART_ROWS generator rows sent as a /insert/jsonline body (a
+    flush after each flushed one; the days' unflushed bodies after every
+    flush).  The bodies are made in 4 processes.  (storage, the end of
+    the last day, figures)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
+                                                           today_start_ns)
+    from victorialogs_tpu_torch.server import insertutil, vlinsert
+    from victorialogs_tpu_torch.storage.storage import Storage
+    end = today_start_ns()
+    slot = NS_PER_DAY // (PACK_FLUSHED + max(PACK_UNFLUSHED))
+    plan = []                 # (flush after it, start ns)
+    for d in range(PACK_DAYS):
+        day = end - (PACK_DAYS - d) * NS_PER_DAY
+        plan += [(True, day + j * slot) for j in range(PACK_FLUSHED)]
+    for d in range(PACK_DAYS):
+        day = end - (PACK_DAYS - d) * NS_PER_DAY
+        plan += [(False, day + (PACK_FLUSHED + j) * slot)
+                 for j in range(PACK_UNFLUSHED[d])]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=4,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        bodies = list(ex.map(
+            flush_body, ["jsonline"] * len(plan),
+            [PACK_PART_ROWS] * len(plan), range(100, 100 + len(plan)),
+            [st for _f, st in plan], [slot] * len(plan), chunksize=8))
+    setup_s = time.perf_counter() - t0
+    storage = Storage(device="cuda")
+    cp = insertutil.CommonParams(tenant=tenants[0],
+                                 stream_fields=INGEST_STREAM_FIELDS)
+    t0 = time.perf_counter()
+    for (flush, _st), body in zip(plan, bodies):
+        lmp = insertutil.LogMessageProcessor(
+            cp, insertutil.LocalLogRowsStorage(storage))
+        if vlinsert.handle_jsonline(cp, body, lmp) != PACK_PART_ROWS:
+            fail("the packed store's body lost rows")
+        lmp.flush()
+        if flush:
+            storage.debug_flush()
+    fig = {"route": "jsonline", "store": "packed",
+           "rows": PACK_PART_ROWS * len(plan),
+           "body_bytes": sum(map(len, bodies)), "setup_s": setup_s,
+           "ingest_s": time.perf_counter() - t0}
+    for d, pt in enumerate(sorted(storage.partitions.values(),
+                                  key=lambda p: p.day)):
+        if [p.num_rows for p in pt.parts] != [PACK_PART_ROWS] * \
+                PACK_FLUSHED or [p.num_rows for p in pt._pending] != \
+                [PACK_PART_ROWS] * PACK_UNFLUSHED[d]:
+            fail(f"the packed store's day {d} is not {PACK_FLUSHED} "
+                 f"flushed parts and {PACK_UNFLUSHED[d]} batches")
+    return storage, end, fig
+
+
+def packed_path(tenants, wrappers, kernel_names) -> tuple:
+    """The packed path: each of `packed_queries` on the packed store
+    through its default runner (vlselect.card_runner) at each of
+    PACK_SETTINGS, VL_INFLIGHT/VL_PACK_PARTS 1/1 being the serial walk.
+    At each setting a first run, its units, packed units and launches
+    (each kernel its listed times a unit: P packable parts in a run of
+    one pad bucket cost ceil(P/8) units), its rows held against the host
+    executor (`host_parts` 0) and, at 4/8, against the 1/1 rows in
+    order (the row query's NDJSON export byte for byte); then the warm
+    p50 without rows, one profiled run's device-busy time and one traced
+    run's span totals.  Then the kernels at the pack shapes.  (report
+    rows, launches by kernel, pack-shape kernel rows, figures)."""
+    import os
+    import torch
+    from victorialogs_tpu_torch.engine.emit import ndjson_block
+    from victorialogs_tpu_torch.engine.searcher import (run_query,
+                                                        run_query_collect)
+    from victorialogs_tpu_torch.gpu.pipeline import iter_pack_groups
+    from victorialogs_tpu_torch.obs import tracing
+    from victorialogs_tpu_torch.server.vlselect import card_runner
+    t0 = time.perf_counter()
+    storage, end, fig = packed_store(tenants)
+    log(f"packed store: {fig['rows']} rows in {fig['body_bytes']} B of "
+        f"JSON lines over {PACK_DAYS} days: bodies made in "
+        f"{fig['setup_s']:.2f} s, ingested in {fig['ingest_s']:.2f} s")
+    runner = card_runner(storage)
+    parts = [p for _d, pt in sorted(storage.partitions.items())
+             for p in pt.snapshot_parts()]
+    groups = [len(g) for g in iter_pack_groups(
+        ((p,) for p in parts), True, 8, 1 << 14)]
+    log(f"packed store: {len(parts)} parts of {PACK_PART_ROWS} rows in "
+        f"walk order ({sum(PACK_UNFLUSHED)} never flushed); packs at 4/8: "
+        f"{groups} ({len(groups)} units; ceil(P/8) = "
+        f"{-(-len(parts) // 8)})")
+    counters = runner.stats_counters
+    for w in wrappers:
+        w.launches = 0
+    report = []
+    for name, q, kernels in packed_queries():
+        t1 = time.perf_counter()
+        want = run_query_collect(storage, tenants, q, timestamp=end)
+        t_host = time.perf_counter() - t1
+        if not want:
+            fail(f"packed {name}: no rows")
+        row = {"query": q, "rows_out": len(want), "host_s": t_host,
+               "phase": "packed", "parts": len(parts)}
+        serial = None
+        for inflight, pack in PACK_SETTINGS:
+            os.environ["VL_INFLIGHT"] = inflight
+            os.environ["VL_PACK_PARTS"] = pack
+            tag = f"{inflight}/{pack}"
+            before = launch_counts(wrappers, counters)
+            t1 = time.perf_counter()
+            got = run_query_collect(storage, tenants, q, timestamp=end,
+                                    runner=runner)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t1
+            ran = {k: counters[k] - before[k] for k in
+                   ("units", "packed_units", "packed_parts",
+                    "device_parts", "host_parts")}
+            launched = {w.__name__: w.launches - before[w.__name__]
+                        for w in wrappers}
+            want_units = len(parts) if pack == "1" else len(groups)
+            if ran["host_parts"] or ran["device_parts"] != len(parts) or \
+                    ran["units"] != want_units or any(
+                        n != kernels.get(k, 0) * want_units
+                        for k, n in launched.items()):
+                fail(f"packed {name} at {tag}: {ran}, launches {launched}, "
+                     f"want {want_units} units of {kernels}")
+            if got != want:
+                fail(f"packed {name} at {tag}: {len(got)} rows differ from "
+                     f"the host executor's {len(want)}")
+            if serial is not None and got != serial:
+                fail(f"packed {name} at {tag}: rows differ from the serial "
+                     f"walk's")
+            serial = got
+
+            def warm_run(q=q):
+                run_query(storage, tenants, q, lambda br: None,
+                          timestamp=end, runner=runner)
+
+            if "stats" not in q and "sort" not in q:
+                chunks = []
+                run_query(storage, tenants, q,
+                          lambda br: chunks.append(ndjson_block(br)),
+                          timestamp=end, runner=runner)
+                if b"".join(chunks) != ndjson_lines(want):
+                    fail(f"packed {name} at {tag}: the NDJSON export "
+                         f"differs from the host executor's rows")
+            p50 = statistics.median(
+                [_wall(warm_run) for _ in range(PACK_WARM_RUNS)])
+            wall, busy = busy_share(warm_run)
+            root = tracing.make_root("query", query=q)
+            with tracing.activate(root):
+                warm_run()
+                torch.cuda.synchronize()
+            spans = root.flatten()
+            sync_s = sum(h.get("attrs", {}).get("host_sync_wait_s", 0.0)
+                         for h in _spans(root.to_dict(), "device_sync"))
+            row[tag] = {
+                "first_run_s": t_first, "units": ran["units"],
+                "packed_units": ran["packed_units"],
+                "packed_parts": ran["packed_parts"], "launches": launched,
+                "device_p50_s": p50, "profiled_wall_s": wall,
+                "device_busy_s": busy,
+                "span_ms": {k: spans.get(k, {}).get("total_ms", 0.0)
+                            for k in ("query", "partition", "prune", "stage",
+                                      "submit", "harvest", "device_sync",
+                                      "emit")},
+                "host_sync_wait_ms": sync_s * 1e3}
+            log(f"packed {name} at {tag}: {len(got)} rows, {ran['units']} "
+                f"units ({ran['packed_units']} packed, of "
+                f"{ran['packed_parts']} parts) for {ran['device_parts']} "
+                f"parts, launches {launched}; first run {t_first:.4f} s, "
+                f"warm p50 {p50:.4f} s without rows, device busy "
+                f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}"
+                f" of {wall * 1e3:.2f} ms; traced run's spans (ms) "
+                f"{row[tag]['span_ms']}, waits on events "
+                f"{sync_s * 1e3:.3f} ms")
+        log(f"packed {name}: answers equal at both settings and to the "
+            f"host executor ({t_host:.3f} s)")
+        report.append(row)
+    launches = {n: w.launches for n, w in zip(kernel_names, wrappers)}
+    os.environ.pop("VL_INFLIGHT")
+    os.environ.pop("VL_PACK_PARTS")
+    first_day = storage.partitions[min(storage.partitions)]
+    kern = pack_kernel_rows(runner, first_day.parts[:8], end, launches)
+    runner.close()
+    storage.close()
+    fig["phase_s"] = time.perf_counter() - t0
+    return report, launches, kern, fig
+
+
+def _wall(fn) -> float:
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _spans(tree: dict, name: str) -> list:
+    out = [tree] if tree.get("name") == name else []
+    for c in tree.get("children", ()):
+        out += _spans(c, name)
+    return out
+
+
+def pack_kernel_rows(runner, members, end, launches) -> dict:
+    """The count and the value reduction at the pack shapes, on one pack
+    of 8 flushed parts as the packed path stages it: the count at
+    `pk_quantile`'s 8 x 2,440 cells (past the count's shared bins) with
+    its segment axis, the value reduction at `pk_value_stats`'s member-
+    folded cells; each held against its plain version, timed beside its
+    bound and a PyTorch yardstick.  {kernel name: row}."""
+    import torch
+    from victorialogs_tpu_torch.engine.block_search import BlockSearch
+    from victorialogs_tpu_torch.gpu.fused import eval_node
+    from victorialogs_tpu_torch.gpu.kernels import combine_ids
+    from victorialogs_tpu_torch.gpu.stats_device import with_segment_axis
+    from victorialogs_tpu_torch.gpu.stats_seg import (stats_count_seg,
+                                                      stats_count_seg_plain,
+                                                      stats_values,
+                                                      stats_values_plain)
+    from victorialogs_tpu_torch.logsql.parser import parse_query
+    pack = runner.get_pack(members)
+    qtext = {n: q for n, q, _k in packed_queries()}
+    out = {}
+
+    def inputs(qname):
+        pq = parse_query(qtext[qname], end)
+        spec = with_segment_axis(runner.stats_spec(pq))
+        asm = runner._assemble_axes(pack, spec)
+        bss = {bi: BlockSearch(pack, bi) for bi in range(pack.num_blocks)}
+        tree, args, layout, _m, cand = runner._program(pq.filter, pack, bss)
+        d, _m = eval_node(tree, args, layout.nrows_padded, runner.device)
+        return spec, asm, d & cand
+
+    def row(name, src, replaces, got, want, fn, plain, lib, nbytes, ops,
+            **extra):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err:
+            fail(f"{name} at the pack shape differs from its plain version "
+                 f"(max abs err {err})")
+        b_ms, b_by = bound(nbytes, ops)
+        ms, timing = timed_ms(fn, 50, {"stats_count_seg": "count_",
+                                       "stats_values": "values_"}[name],
+                              b_ms)
+        pms, _pt = timed_ms(plain, 5, floor_ms=b_ms)
+        lms, _lt = timed_ms(lib, 50, floor_ms=b_ms)
+        out[name] = dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=err, ms=ms, plain_ms=pms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lms, timing=timing,
+            bound_bytes=nbytes, bound_operations=ops, **extra)
+        log(f"kernel {name} at the pack shape {extra}: {ms} ms by {timing} "
+            f"(plain {pms} ms, bound {b_ms} ms by {b_by}, library {lms} "
+            f"ms), {launches[name]} launches on the packed path")
+
+    _spec, asm, mask = inputs("pk_quantile")
+    r = mask.numel()
+    nseg, nb = asm.nseg, asm.nb // asm.nseg
+    seg = asm.axes[0][1]
+    base = combine_ids([a[1] for a in asm.axes[1:]], asm.strides[1:])
+    a = (seg, base, mask, nseg, nb)
+    folded = combine_ids([x[1] for x in asm.axes], asm.strides)
+    maskf = mask.float()
+    row("stats_count_seg", "victorialogs_tpu_torch/csrc/count.cu",
+        "victorialogs_tpu/tpu/stats_seg.py:303", stats_count_seg(*a),
+        stats_count_seg_plain(*a), lambda: stats_count_seg(*a),
+        lambda: stats_count_seg_plain(*a),
+        lambda: torch.bincount(folded, weights=maskf, minlength=nseg * nb),
+        r * 9 + nseg * nb * 4, int(mask.sum()), query="pk_quantile",
+        nseg=nseg, cells=nb, rows=r, masked_rows=int(mask.sum()))
+    spec, asm, mask = inputs("pk_value_stats")
+    cols = [asm.numerics[f].values for f in spec.value_fields]
+    ids = combine_ids([x[1] for x in asm.axes], asm.strides)
+    va = (cols, ids, mask, asm.nb)
+    got = stats_values(*va)
+    if not values_agree(got, values_library(*va)(), asm.nb):
+        fail("stats_values at the pack shape: the PyTorch composition "
+             "disagrees")
+    row("stats_values", "victorialogs_tpu_torch/csrc/count.cu",
+        "victorialogs_tpu/tpu/kernels.py:285", got, stats_values_plain(*va),
+        lambda: stats_values(*va), lambda: stats_values_plain(*va),
+        values_library(*va), *values_work(mask, asm.nb, len(cols)),
+        query="pk_value_stats", nseg=asm.nseg, cells=asm.nb,
+        columns=len(cols), rows=mask.numel(), masked_rows=int(mask.sum()))
+    return out
+
+
 def launch_counts(wrappers, parts) -> dict:
     """Every wrapper's launch count and the runner's part counters."""
     out = {w.__name__: w.launches for w in wrappers}
@@ -1923,7 +2260,7 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
     default limit (held against the same handler with no runner, on
     `limit_parts` device parts, any number when None, or where not
     `host_handler` against `want` serialized: the one block a sort
-    writes); `phrase` also answers FIELDS_CASE."""
+    writes); `phrase` also answers FIELDS_CASE, on as many parts."""
     from victorialogs_tpu_torch.engine.emit import ndjson_block
     from victorialogs_tpu_torch.engine.searcher import run_query
     from victorialogs_tpu_torch.server.vlselect import handle_query
@@ -1935,11 +2272,13 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
                   lambda br: chunks.append(ndjson_block(br)), runner=runner)
         return chunks
 
-    got = b"".join(export())
+    # one warm export, timed and held against the host executor
+    exports = []
+    p50 = timed(lambda: exports.append(b"".join(export())), 1)
+    got = exports[0]
     if got != ndjson_lines(want):
         fail(f"query {name}: the NDJSON export differs from the host "
              f"executor's rows serialized")
-    p50 = timed(export, WARM_NDJSON_RUNS)
     out = {"ndjson_p50_s": p50, "ndjson_bytes": len(got),
            "ndjson_rows_per_s": len(want) / p50}
     cases = [("api_query", q)]
@@ -1956,7 +2295,7 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
         chunks = handle_query(storage, args, {}, runner=runner)
         out[f"{label}_parts"] = check_launches(
             f"{label} {name}", wrappers, parts, before, kernels,
-            want_parts=limit_parts if label == "api_query" else 1)
+            want_parts=limit_parts)
         if chunks != want_chunks:
             fail(f"{label} {name}: the answer differs from the handler's "
                  f"with no runner")
@@ -1970,11 +2309,12 @@ def row_answers(storage, tenants, name: str, q: str, want: list, runner,
 EXTRA_FILTERS = '{"app": ["app-1", "app-2"]}'
 
 
-def extra_filters_answer(storage, runner, wrappers, timed) -> dict:
+def extra_filters_answer(storage, runner, wrappers, timed,
+                         want_parts: int) -> dict:
     """/select/logsql/query on `error` with EXTRA_FILTERS (an `in` over
     the stream field `app`), held against the same handler with no
-    runner: one device part, the two exact scans of the `in` and the
-    phrase scan."""
+    runner: `want_parts` device parts (the window's first units), the
+    two exact scans of the `in` and the phrase scan a part."""
     from victorialogs_tpu_torch.server.vlselect import handle_query
     args = {"query": "error", "extra_filters": EXTRA_FILTERS}
     want = handle_query(storage, dict(args), {}, runner=None)
@@ -1982,7 +2322,7 @@ def extra_filters_answer(storage, runner, wrappers, timed) -> dict:
     got = handle_query(storage, dict(args), {}, runner=runner)
     check_launches("api_query extra_filters", wrappers,
                    runner.stats_counters, before, {"match_scan": 3},
-                   want_parts=1)
+                   want_parts=want_parts)
     if got != want or not got:
         fail("api_query extra_filters: the answer differs from the "
              "handler's with no runner")
@@ -2054,6 +2394,7 @@ def main() -> int:
     from victorialogs_tpu_torch.gpu import build
     from victorialogs_tpu_torch.gpu import kernels as K
     from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
+    from victorialogs_tpu_torch.gpu.pipeline import inflight_depth
     from victorialogs_tpu_torch.gpu.bloom_device import (BloomGate,
                                                          keep_rows_plain,
                                                          pad_probe_args,
@@ -2113,7 +2454,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for k in vlinsert.INGEST_COUNTERS:
         vlinsert.INGEST_COUNTERS[k] = 0
-    storage, start, nrows, fig = ingest_route("jsonline", ROWS, 4, seed=11)
+    storage, start, nrows, fig = ingest_route("jsonline", ROWS, FLUSHES,
+                                              seed=11)
     t_ingest = time.perf_counter() - t0
     counters = dict(vlinsert.INGEST_COUNTERS)
     log_ingest(fig, counters)
@@ -2123,9 +2465,10 @@ def main() -> int:
     log(f"ingest: {nrows} rows, parts of "
         f"{[p.num_rows for p in main_parts]} rows in "
         f"{[p.num_blocks for p in main_parts]} blocks, {t_ingest:.1f} s")
-    if [p.num_rows for p in main_parts] != [ROWS // 4] * 4 or \
-            [p.num_blocks for p in main_parts] != [64] * 4:
-        fail("the main store is not 4 parts of 1M rows in 64 blocks each")
+    if [p.num_rows for p in main_parts] != [ROWS // FLUSHES] * FLUSHES or \
+            [p.num_blocks for p in main_parts] != [64] * FLUSHES:
+        fail(f"the main store is not {FLUSHES} parts of 1M rows in 64 "
+             f"blocks each")
     if counters["py_chunks"]:
         fail(f"{counters['py_chunks']} chunks of the generator's bodies "
              f"were parsed in Python")
@@ -2135,6 +2478,8 @@ def main() -> int:
     log(f"ingest routes: {time.perf_counter() - t0:.1f} s")
     tenants = [TenantID(0, 0)]
     runner = TorchBatchRunner(device="cuda")
+    # units the dispatch window submits before its first harvest
+    window = inflight_depth()
     # the kernels of the main path, then the standalone probe, which the
     # planner never launches
     main_path = (K.match_scan, K.match_scan_gated, stats_count_seg,
@@ -2214,8 +2559,11 @@ def main() -> int:
                 f"{ans['api_stats_p50_s']:.4f} s, "
                 f"{ans['api_stats_samples']} samples")
         else:
-            # fewer than 1000 rows a part: the limit-1000 answer walks on
-            limit_parts = 1 if len(want) >= 1000 * dev_parts else None
+            # the window has submitted its first units when the first
+            # part's rows satisfy the limit; with fewer than 1000 rows a
+            # part the limit-1000 answer walks on
+            limit_parts = min(window, dev_parts) \
+                if len(want) >= 1000 * dev_parts else None
             ans = row_answers(storage, tenants, name, q, want, runner,
                               kernels, wrappers, timed, limit_parts,
                               host_handler)
@@ -2278,9 +2626,10 @@ def main() -> int:
                  f"to the host")
         report.append(row)
         del got
-    row = extra_filters_answer(storage, runner, wrappers, timed)
+    row = extra_filters_answer(storage, runner, wrappers, timed,
+                               min(window, FLUSHES))
     log(f"answer extra_filters: {row['api_query_bytes']} B, query at "
-        f"limit 1000 p50 {row['api_query_p50_s']:.4f} s, one device part")
+        f"limit 1000 p50 {row['api_query_p50_s']:.4f} s")
     report.append(row)
     flaunches = {w.__name__: w.launches for w in wrappers}
     log(f"filters' path launches: {flaunches}; runner parts: {parts}; "
@@ -2389,6 +2738,23 @@ def main() -> int:
         if tlaunches[w.__name__] == 0:
             fail(f"{w.__name__} was not launched on the transform path")
     for n, c in tlaunches.items():
+        if n in launches:
+            launches[n] += c
+
+    # phase 3, the packed path: a store of many small parts over four
+    # days, at VL_INFLIGHT/VL_PACK_PARTS 1/1 and 4/8; its counts zeroed
+    # first
+    t_phase = time.perf_counter()
+    packed, plaunches, pack_kern, pfig = packed_path(
+        tenants, wrappers, [w.__name__ for w in wrappers])
+    ingest_figs.append(pfig)
+    log(f"packed path launches: {plaunches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for w in (K.match_scan, K.match_scan_gated, stats_count_seg,
+              stats_values):
+        if plaunches[w.__name__] == 0:
+            fail(f"{w.__name__} was not launched on the packed path")
+    for n, c in plaunches.items():
         if n in launches:
             launches[n] += c
 
@@ -2575,6 +2941,8 @@ def main() -> int:
     kern[-1]["kept_rows"] = int(keep_rows_plain(gate, r).sum())
     kern[-1]["definite_rows"] = int(got_gp[0].sum())
     for k in kern:
+        if k["name"] in pack_kern:
+            k["at_pack"] = pack_kern[k["name"]]
         log(f"kernel {k['name']}: {k['ms']} ms (plain {k['plain_ms']} ms, "
             f"bound {k['bound_ms']} ms by {k['bound_by']} from "
             f"{k['bound_bytes']} B and {k['bound_operations']} operations, "
@@ -2601,7 +2969,7 @@ def main() -> int:
         else "nvidia-smi: no output")
     print(json.dumps({"kernels": kern, "answers": [
         {k: r[k] for k in ANSWER_KEYS if k in r} for r in report],
-        "ingest": ingest_figs}))
+        "packed": packed, "ingest": ingest_figs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -420,7 +420,11 @@ def test_stats_query_needs_stats(stores):
 
 @pytest.mark.parametrize("q", ["error | limit 10", "quota | head 3",
                                "* | offset 5 | limit 5"])
-def test_satisfied_limit_stops_the_walk(stores, q):
+def test_satisfied_limit_stops_the_walk(stores, monkeypatch, q):
+    # the serial walk; the dispatch window stops there too, with up to
+    # VL_INFLIGHT units in flight (tests/test_torch_pipeline.py)
+    monkeypatch.setenv("VL_INFLIGHT", "1")
+    monkeypatch.setenv("VL_PACK_PARTS", "1")
     _start, port, _jax_st = stores
     parts = {}
     for text in (q, q.split(" | ")[0]):
@@ -432,7 +436,9 @@ def test_satisfied_limit_stops_the_walk(stores, q):
     assert parts[q.split(" | ")[0]] == 4
 
 
-def test_handle_query_default_limit_runs_one_part(stores):
+def test_handle_query_default_limit_runs_one_part(stores, monkeypatch):
+    monkeypatch.setenv("VL_INFLIGHT", "1")      # the serial walk
+    monkeypatch.setenv("VL_PACK_PARTS", "1")
     _start, port, _jax_st = stores
     runner = TorchBatchRunner(device="cpu")
     chunks = sel.handle_query(port, {"query": "error"}, {}, runner=runner)
@@ -482,9 +488,11 @@ def test_handlers_without_cuda_raise(stores, monkeypatch, handler):
 
 
 @pytest.mark.cuda
-def test_handle_query_default_runs_on_the_card(stores):
+def test_handle_query_default_runs_on_the_card(stores, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setenv("VL_INFLIGHT", "1")      # the serial walk
+    monkeypatch.setenv("VL_PACK_PARTS", "1")
     _start, port, _jax_st = stores
     got = sel.handle_query(port, {"query": "error"}, {})
     runner = sel.card_runner(port)

@@ -370,15 +370,20 @@ def _port_runner():
     whether it reduced the part's stats on the card."""
     from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
 
+    from victorialogs_tpu_torch.gpu.batch import _Then
+
     class Recording(TorchBatchRunner):
         def __init__(self):
             super().__init__(device="cpu")
             self.reduced = {}
 
-        def run_part_stats(self, f, part, bss, spec):
-            out = super().run_part_stats(f, part, bss, spec)
-            self.reduced[(part.min_ts, part.num_rows)] = out[1] == set(bss)
-            return out
+        def run_part_stats_submit(self, f, part, bss, spec):
+            def record(out):
+                self.reduced[(part.min_ts, part.num_rows)] = \
+                    out[1] == set(bss)
+                return out
+            return _Then(super().run_part_stats_submit(f, part, bss, spec),
+                         record)
     return Recording()
 
 

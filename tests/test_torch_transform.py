@@ -95,18 +95,18 @@ def _pair(path, batches, stream_fields, **port_kw):
 
 def _answers(port, jax_st, q, ts):
     """(JAX host rows, port host rows, port runner rows, runner
-    counters, stats launches: run_part_stats calls)."""
+    counters, stats launches: run_part_stats_submit calls)."""
     want = jax_run(jax_st, [JLR.TenantID(0, 0)], q, timestamp=ts)
     t = [TenantID(0, 0)]
     host = run_query_collect(port, t, q, timestamp=ts)
     runner = TorchBatchRunner(device="cpu")
     calls = []
-    inner = runner.run_part_stats
+    inner = runner.run_part_stats_submit
 
     def counted(*a):
         calls.append(1)
         return inner(*a)
-    runner.run_part_stats = counted
+    runner.run_part_stats_submit = counted
     try:
         dev = run_query_collect(port, t, q, timestamp=ts, runner=runner)
     finally:
@@ -287,7 +287,8 @@ def test_stats_of_the_device_shape_still_reduce_on_the_card(gen_stores, q):
     want, host, dev, counters, stats_calls = _answers(port, jax_st, q,
                                                       start)
     assert host == dev == want
-    assert stats_calls == counters["device_parts"] >= 1
+    # one reduction a dispatch unit (a part, or a pack of small parts)
+    assert stats_calls == counters["units"] >= 1
 
 
 def test_block_stats_on_the_same_parts(gen_stores):

@@ -205,9 +205,12 @@ def test_more_than_eight_batches_flush_in_the_call(stores, route):
         assert want and got == [want, want], q
 
 
-def test_flush_releases_staged_in_memory_parts(stores):
+def test_flush_releases_staged_in_memory_parts(stores, monkeypatch):
     """The runner stages the in-memory parts; a flush replaces them with
-    one part, and their entries leave the staging cache with them."""
+    one part, and their entries leave the staging cache with them.
+    Unpacked, so the entries are the parts' own (a pack's:
+    tests/test_torch_pipeline.py)."""
+    monkeypatch.setenv("VL_PACK_PARTS", "1")
     port, jax_st = stores
     for rows in _batches(4, 500):
         _add("rows", port, jax_st, rows)

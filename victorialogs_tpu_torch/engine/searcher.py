@@ -9,30 +9,37 @@ range, tenant, stream, AND-path `_stream_id:` ids), and feeds the
 matching rows through the pipe chain.
 
 The runner is the seam the device path plugs into.  Without one, every
-block is filtered on the host (`Filter.apply_to_block`).  With one, the
-executor hands the runner a whole part's candidate blocks at a time:
-`runner.run_part(f, part, bss) -> {block: bitmap}` for row queries, and
-for `| stats` queries with a device shape (`runner.stats_spec(q)`)
-`runner.run_part_stats(f, part, bss, spec) -> (bitmaps, handled, partials)`
-where `handled` blocks are already reduced in `partials` (one per
-nonempty cell: key parts, count, value stats, uniq values, quantile
-numbers), which become the functions' partial states and merge into
-the stats processor; the rest come back as bitmaps for the row path.
-A row query whose first pipe is `sort by (field) limit N`
-(`gpu/sort_device.device_sort_spec`) asks
-`runner.run_part_topk(f, part, bss, sort_spec)` first: it returns only
-the rows at or above the part's k-th best key, or None, and then the
-part runs `run_part`.  The walk stays serial, so the sort pipe sees the
-surviving rows in the order the host executor would.
+block is filtered on the host (`Filter.apply_to_block`), partition by
+partition, part by part.  With one, every selected partition's parts
+go through one dispatch window (gpu/pipeline.py `scan_device_stream`;
+VL_CROSS_PARTITION=0 drains it at each day boundary), which hands the
+runner a whole part's candidate blocks at a time, or a pack of small
+parts as one part-like value: `runner.run_part_submit(f, part, bss)`
+for row queries, whose harvest gives {block: bitmap}, and for `| stats`
+queries with a device shape (`runner.stats_spec(q)`)
+`runner.run_part_stats_submit(f, part, bss, spec)`, whose harvest gives
+(bitmaps, handled, partials) where `handled` blocks are already reduced
+in `partials` (one per nonempty cell: key parts, count, value stats,
+uniq values, quantile numbers), which become the functions' partial
+states and merge into the stats processor; the rest come back as
+bitmaps for the row path.  A row query whose first pipe is `sort by
+(field) limit N` (`gpu/sort_device.device_sort_spec`) asks
+`runner.run_part_topk_submit(f, part, bss, sort_spec)` first: it keeps
+only the rows at or above the part's k-th best key, or declines, and
+then the part runs `run_part_submit`.  Units are harvested in
+submission order, so the sort pipe sees the surviving rows in the
+order of the serial walk.  Each partition is set up (stream filters
+resolved, parts listed) when the walk reaches it, under a `partition`
+span.
 
 The storage-backed pipes (`join`, `union`, `stream_context`) get the
 storage, tenants and runner before the processors are built, and run
 their own queries through `run_query_collect_columns` with that runner.
 
 The walk stops once the pipe chain reports itself done (a satisfied
-`limit`): it checks before each part's filter or stats program and
-before each block it writes, so a query answered from its first part
-runs no other.  Stored blocks enter the chain with the chain's needed
+`limit`): the host walk checks before each block it writes; the window
+submits no unit after it and drops the units still in flight
+unwritten.  Stored blocks enter the chain with the chain's needed
 fields (`compute_needed_fields`), so a `| fields` query decodes no
 other column.
 """
@@ -43,6 +50,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..gpu.pipeline import cross_partition_enabled, scan_device_stream
 from ..gpu.sort_device import device_sort_spec
 from ..gpu.stats_device import build_partial_states
 from ..logsql.duration import format_rfc3339
@@ -52,6 +60,7 @@ from ..logsql.filters import (FilterAnd, FilterContainsAll,
 from ..logsql.parser import MAX_TS, MIN_TS, Query, parse_query
 from ..logsql.pipes import (PipeStats, PipeWhere, SinkProcessor,
                             compute_needed_fields)
+from ..obs import tracing
 from ..storage.log_rows import TenantID
 from .block_result import BlockResult
 from .block_search import BlockSearch
@@ -134,10 +143,12 @@ def host_bitmap(f, bs) -> np.ndarray:
 def absorb_stats_partials(head, ps, spec, partials) -> None:
     """Merge a runner's per-cell partials into the stats processor
     `head` of pipe `ps`: ("t", bucket ns) key parts become RFC3339
-    strings, as the host's bucketing, ("v", value) parts the value."""
+    strings, as the host's bucketing, ("v", value) parts the value; a
+    packed unit's ("s", member) part names the member and is no part of
+    the key."""
     for key_parts, cnt, field_stats, uniq_vals, quant_vals in partials:
         key = tuple(format_rfc3339(v) if kind == "t" else v
-                    for kind, v in key_parts)
+                    for kind, v in key_parts if kind != "s")
         head.absorb_partials(key, build_partial_states(
             spec, ps.funcs, cnt, field_stats, uniq_vals, quant_vals))
 
@@ -150,32 +161,52 @@ def _allowed_streams(f, pt, tenants) -> set:
     return {sid for sid in pt.streams if sid.as_string() in f._set}
 
 
-def _candidate_parts(storage, q: Query, tenants: tuple, min_ts: int,
-                     max_ts: int):
-    """(part, {block: BlockSearch}) of every part with candidate blocks
-    (time range, tenant, `_stream:{...}` filters), in walk order."""
-    tenant_set = set(tenants)
-    sfs = _stream_filters(q.filter, [])
-    for pt in storage.select_partitions(min_ts, max_ts):
+def _partition_parts(pt, q: Query, tenants: tuple, min_ts: int,
+                     max_ts: int, qsp):
+    """(part, candidate block idxs, ctx) of the partition's parts with
+    candidate blocks (time range, tenant, `_stream:{...}` filters), in
+    walk order.  The partition is set up when the walk reaches it, under
+    a short `partition` span (day, parts) of the query's span `qsp`:
+    the span closes before the first part is yielded, so it never stays
+    open across the window's pulls."""
+    with qsp.span("partition", day=pt.day) as psp:
         ctx = SearchContext(partition=pt, tenants=tenants)
+        sfs = _stream_filters(q.filter, [])
         allowed = None
+        parts = []
         if sfs:
             allowed = set.intersection(*(_allowed_streams(f, pt, tenants)
                                          for f in sfs))
             if not allowed:
-                continue
-        for part in pt.snapshot_parts():
-            if not part.num_rows or part.min_ts > max_ts or \
-                    part.max_ts < min_ts:
-                continue
-            bss = {}
-            for bi in part.candidate_blocks(min_ts, max_ts):
-                sid = part.block_stream_id(bi)
-                if sid.tenant in tenant_set and (allowed is None
-                                                 or sid in allowed):
-                    bss[bi] = BlockSearch(part, bi, ctx)
-            if bss:
-                yield part, bss
+                psp.set("pruned_by_stream_filter", True)
+        if allowed is None or allowed:
+            parts = [p for p in pt.snapshot_parts()
+                     if p.num_rows and p.min_ts <= max_ts
+                     and p.max_ts >= min_ts]
+            psp.set("parts", len(parts))
+    tenant_set = set(tenants)
+    for part in parts:
+        bis = []
+        for bi in part.candidate_blocks(min_ts, max_ts):
+            sid = part.block_stream_id(bi)
+            if sid.tenant in tenant_set and (allowed is None
+                                             or sid in allowed):
+                bis.append(bi)
+        if bis:
+            yield part, bis, ctx
+
+
+def _walk_host(items, f, head, needed) -> None:
+    """The host executor's serial walk, block by block."""
+    for part, bis, ctx in items:
+        for bi in bis:
+            if head.is_done():
+                return
+            bs = BlockSearch(part, bi, ctx)
+            bm = host_bitmap(f, bs)
+            if bm.any():
+                head.write_block(BlockResult.from_block_search(bs, bm,
+                                                               needed))
 
 
 def run_query(storage, tenants, q: Query | str, write_block,
@@ -206,29 +237,28 @@ def run_query(storage, tenants, q: Query | str, write_block,
     spec = runner.stats_spec(q) if runner is not None else None
     sort_spec = device_sort_spec(q) if runner is not None and \
         spec is None else None
-    for part, bss in _candidate_parts(storage, q, tenants, min_ts, max_ts):
-        if head.is_done():
-            break
-        handled: set = set()
-        bms = None            # without a runner: block by block below
-        if spec is not None:
-            bms, handled, partials = runner.run_part_stats(
-                q.filter, part, bss, spec)
+    pts = storage.select_partitions(min_ts, max_ts)
+    qsp = tracing.current_span()
+
+    def parts(pt):
+        return _partition_parts(pt, q, tenants, min_ts, max_ts, qsp)
+
+    if runner is None:
+        _walk_host((it for pt in pts for it in parts(pt)), q.filter, head,
+                   needed)
+    else:
+        def absorb(partials):
             absorb_stats_partials(head, q.pipes[0], spec, partials)
-        elif runner is not None:
-            if sort_spec is not None:
-                bms = runner.run_part_topk(q.filter, part, bss, sort_spec)
-            if bms is None:
-                bms = runner.run_part(q.filter, part, bss)
-        for bi, bs in bss.items():
-            if bi in handled:
-                continue
+
+        # one dispatch window across every selected partition, set up
+        # lazily; VL_CROSS_PARTITION=0 drains it at each day boundary
+        streams = [(it for pt in pts for it in parts(pt))] \
+            if cross_partition_enabled() else [parts(pt) for pt in pts]
+        for items in streams:
             if head.is_done():
                 break
-            bm = host_bitmap(q.filter, bs) if bms is None else bms[bi]
-            if bm.any():
-                head.write_block(BlockResult.from_block_search(bs, bm,
-                                                               needed))
+            scan_device_stream(items, q.filter, head, runner, needed, spec,
+                               sort_spec, absorb)
     head.flush()
 
 

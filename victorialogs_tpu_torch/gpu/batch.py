@@ -17,6 +17,16 @@ device program (gpu/fused.py), runs it, and either
   only the matched rows at or above the part's k-th best sort key
   (`run_part_topk`, `topk_parts`) and downloads those.
 
+Each of the three has a submit form (`run_part_submit`,
+`run_part_stats_submit`, `run_part_topk_submit`) that launches and
+returns a handle without waiting: its results go to the host as a
+non-blocking copy into pinned memory followed by a CUDA event
+(`Download`), and `harvest()` waits on the event, unpacks and settles;
+the dispatch window (gpu/pipeline.py) keeps several handles in flight.
+The part may be a pack of small parts (pipeline.PackedPart, made by
+`get_pack`): one program over the members' concatenated rows, stats
+with a leading member axis, a top-k per member.
+
 Maybe rows (values truncated by the staging) are settled on the host
 with the filter's own predicate.  Where the planner cannot express the
 whole tree, the runner walks it leaf by leaf (`_LeafWalk`): AND and OR
@@ -35,24 +45,26 @@ executor's.
 from __future__ import annotations
 
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..logsql import filters as F
 from ..storage.values_encoder import VT_DICT, VT_STRING
 from .bloom_device import block_starts, stage_bloom_plane
-from .fused import (TOPK_SCORE_MAX, _NoFuse, _Planner, eval_node,
-                    part_layout, residue_partials, settle_maybe,
-                    stage_layout_column, topk_rows)
+from .fused import (TOPK_SCORE_MAX, _NoFuse, _Planner, device_plan,
+                    eval_node, part_layout, residue_partials, settle_maybe,
+                    stage_layout_column, topk_rows, topk_rows_packed)
 from .kernels import combine_ids, packbits
 from .layout import StagingCache, rows_with_multibyte
 from .stats_device import (MAX_ABS_TIMES_ROWS, MAX_BUCKETS,
                            MAX_QUANTILE_RANGE, SYNTH_EMPTY, SYNTH_LEN,
                            StatsSpec, device_stats_spec)
-from .stats_seg import split_values, stats_count_seg, stats_values
+from .stats_seg import (build_seg_slot_map, split_values, stats_count_seg,
+                        stats_values)
 from .sort_device import SortSpec
 from .stats_stage import (stage_dict_codes, stage_empty_column,
                           stage_len_column, stage_num_buckets,
@@ -77,6 +89,74 @@ def _drop_staged(cache_ref, uid) -> None:
     cache = cache_ref()
     if cache is not None:
         cache.drop_part(uid)
+
+
+def _drop_pack(runner_ref, key) -> None:
+    runner = runner_ref()
+    if runner is not None:
+        runner._packs.pop(key, None)
+        runner._pack_ties.discard(key)
+        runner.cache.drop_part(("pack",) + key)
+
+
+class Ready:
+    """A unit result made at submit (a constant tree, a walk on the
+    host): nothing in flight."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def harvest(self, sync=None):
+        return self.value
+
+    def release(self) -> None:
+        pass
+
+
+class Download:
+    """Device tensors on their way to the host.  On the card: a
+    non-blocking copy of each into pinned memory, then a CUDA event on
+    the current stream; `harvest` waits on the event (through `sync`
+    when given) and hands the numpy arrays to `finish`.  On the CPU the
+    tensors are the host arrays, and nothing is in flight."""
+
+    def __init__(self, tensors: list, finish):
+        self.finish = finish
+        self.event = None
+        if tensors[0].device.type == "cpu":
+            self.host = tensors
+            return
+        self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in tensors]
+        for h, t in zip(self.host, tensors):
+            h.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def harvest(self, sync=None):
+        if self.event is not None:
+            (sync or torch.cuda.Event.synchronize)(self.event)
+        return self.finish([h.numpy() for h in self.host])
+
+    def release(self) -> None:
+        """A handle dropped unharvested: its pinned buffers must outlive
+        its copies."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
+class _Then:
+    """A pending result passed through `fn` at harvest."""
+
+    def __init__(self, pending, fn):
+        self.pending = pending
+        self.fn = fn
+
+    def harvest(self, sync=None):
+        return self.fn(self.pending.harvest(sync))
+
+    def release(self) -> None:
+        self.pending.release()
 
 
 def multibyte_rows(part, field: str, layout) -> np.ndarray:
@@ -118,7 +198,8 @@ def multibyte_rows(part, field: str, layout) -> np.ndarray:
 class AxesAssembly:
     """What one part's stats launch reads: value columns, and the axes
     (kind, ids, size, payload) whose row-major product is the cells.
-    Kinds: "t" time buckets (payload (base, step)), "v" group-by keys
+    Kinds: "s" the members of a packed unit (always first, payload
+    None), "t" time buckets (payload (base, step)), "v" group-by keys
     (payload (field or None when bucketed, values)), "u" count_uniq
     values (payload (field, values)), "q" quantile numbers (payload
     (field, vmin))."""
@@ -128,6 +209,12 @@ class AxesAssembly:
     strides: tuple
     nb: int
     uniq_shared: list              # (field, axis idx): a by-field's axis
+    nseg: int = 0                  # a packed unit's members ("s" axis)
+
+
+# packs a runner keeps (their members held weakly): enough for the hot
+# packs' bloom planes to stay built across queries
+PACK_CACHE_MAX = 32
 
 
 class TorchBatchRunner:
@@ -141,15 +228,38 @@ class TorchBatchRunner:
         self.stats_counters = {"device_parts": 0, "device_rows": 0,
                                "host_parts": 0, "maybe_rows": 0,
                                "cpu_fallbacks": 0, "topk_parts": 0,
-                               "topk_declines": 0, "topk_rows": 0}
+                               "topk_declines": 0, "topk_rows": 0,
+                               "units": 0, "packed_units": 0,
+                               "packed_parts": 0, "inflight_hwm": 0}
+        self._packs: OrderedDict = OrderedDict()
+        self._pack_ties: set = set()
 
     def close(self) -> None:
         self.cache.clear()
+        self._packs.clear()
+
+    def get_pack(self, members: list):
+        """The PackedPart of `members`, kept while each member lives:
+        the first member finalized (a flush dropping an in-memory part)
+        drops the pack and its staged tensors."""
+        from .pipeline import PackedPart
+        key = tuple(p.uid for p in members)
+        got = self._packs.get(key)
+        if got is None:
+            got = self._packs[key] = PackedPart(members)
+        self._packs.move_to_end(key)
+        while len(self._packs) > PACK_CACHE_MAX:
+            self._packs.popitem(last=False)
+        if key not in self._pack_ties:
+            self._pack_ties.add(key)
+            for p in members:
+                weakref.finalize(p, _drop_pack, weakref.ref(self), key)
+        return got
 
     # ---- staging (cached per part uid) ----
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return to_device(arr, self.device)
 
     def _cached(self, key, build):
         got = self.cache.get(key)
@@ -206,6 +316,37 @@ class TorchBatchRunner:
             lambda: _Staged(self.put(block_starts(part, layout)), None,
                             4 * (part.num_blocks + 1))).value
 
+    def stage_segments(self, part, layout) -> torch.Tensor:
+        """int32[RLp] member ids of a packed part's rows."""
+        def build():
+            ids = np.zeros(layout.nrows_padded, dtype=np.int32)
+            for bi in range(part.num_blocks):
+                start = layout.starts[bi]
+                ids[start:start + part.block_rows(bi)] = \
+                    part.segment_of_block(bi)
+            return _Staged(self.put(ids), None, ids.nbytes)
+        return self._cached((part.uid, "seg"), build).value
+
+    def stage_seg_slots(self, part, layout, k: int) -> torch.Tensor:
+        """int32[S, Lp] slot grid of a packed part, Lp >= k."""
+        def build():
+            idx = build_seg_slot_map(part, layout, k)
+            return _Staged(self.put(idx), None, idx.nbytes)
+        return self._cached((part.uid, "segslots", k), build).value
+
+    def prefetch(self, part, f, spec, sort_spec) -> None:
+        """Stage what a unit's submit will read (its layout, the columns
+        of the filter's scan leaves, its stats axes or sort column), so
+        that the host work and the uploads of a unit in the window's
+        lookahead overlap the units already on the card."""
+        layout = self.layout(part)
+        for fld in _scan_fields(f, set()):
+            self.stage_fused_field(part, fld, layout)
+        if spec is not None:
+            self._assemble_axes(part, spec)
+        if sort_spec is not None:
+            self.stage_numeric(part, sort_spec.field, layout)
+
     def _stage(self, key, build):
         """A cached staging result, or None where `build` returned None
         (remembered too)."""
@@ -242,7 +383,14 @@ class TorchBatchRunner:
             numerics[fld] = sn
         axes = []
         eligibility = [sn.eligible for sn in numerics.values()]
+        nseg = 0
         for bk in spec.by:
+            if bk.kind == "seg":
+                # the pack's block -> member map as per-row ids
+                nseg = part.num_segments
+                axes.append(("s", self.stage_segments(part, layout), nseg,
+                             None))
+                continue
             if bk.kind == "time":
                 sb = self._stage(
                     (part.uid, "tb", bk.step, bk.offset),
@@ -291,7 +439,9 @@ class TorchBatchRunner:
                          (fld, sn.vmin)))
             eligibility.append(sn.eligible)
         nb = int(np.prod([a[2] for a in axes])) if axes else 1
-        if nb > MAX_BUCKETS:
+        # the member axis does not count toward the cap: a pack reduces
+        # at most VL_PACK_PARTS * MAX_BUCKETS cells
+        if nb // max(nseg, 1) > MAX_BUCKETS:
             return None
         strides = []
         s = 1
@@ -301,46 +451,50 @@ class TorchBatchRunner:
         return AxesAssembly(numerics=numerics, axes=axes,
                             eligibility=eligibility,
                             strides=tuple(reversed(strides)), nb=nb,
-                            uniq_shared=uniq_shared)
+                            uniq_shared=uniq_shared, nseg=nseg)
 
     @staticmethod
-    def _key_parts(asm: AxesAssembly, idx: int) -> tuple:
-        """(group-key parts, uniq values, quantile numbers) of cell
-        `idx`."""
-        ks = [(idx // stride) % size
-              for (_k, _i, size, _p), stride in zip(asm.axes, asm.strides)]
-        out = []
-        uniq = {}
-        qv = {}
-        for (kind, _ids, _size, payload), k in zip(asm.axes, ks):
-            if kind == "t":
-                base, step = payload
-                out.append(("t", base + k * step))
-            elif kind == "v":
-                out.append(("v", payload[1][k]))
-            elif kind == "q":
-                qv[payload[0]] = payload[1] + k
-            else:
-                uniq[payload[0]] = payload[1][k]
-        for fld, ai in asm.uniq_shared:
-            uniq[fld] = asm.axes[ai][3][1][ks[ai]]
-        return tuple(out), uniq, qv
-
-    def _partials(self, asm: AxesAssembly, counts, stats_np: dict) -> list:
+    def _partials(asm: AxesAssembly, counts, stats_np: dict) -> list:
         """(key parts, count, value stats, uniq values, quantile numbers)
         of every nonempty cell; value stats are (sum, min, max) of the
-        stored values (the staged offsets plus vmin)."""
+        stored values (the staged offsets plus vmin).  Each axis's value
+        of every nonempty cell is decoded at once: a pack's cells are
+        many, and a cell at a time costs ~10 us of Python."""
+        idxs = np.nonzero(counts)[0]
+        cnts = counts[idxs].tolist()
+        vals = []             # per axis: its value in each nonempty cell
+        for (kind, _ids, size, payload), stride in zip(asm.axes,
+                                                        asm.strides):
+            ks = (idxs // stride % size).tolist()
+            if kind == "s":
+                vals.append(ks)
+            elif kind == "t":
+                base, step = payload
+                vals.append([base + k * step for k in ks])
+            elif kind == "q":
+                vals.append([payload[1] + k for k in ks])
+            else:
+                table = payload[1]
+                vals.append([table[k] for k in ks])
+        keyed = [(kind, vals[ai])
+                 for ai, (kind, _i, _s, _p) in enumerate(asm.axes)
+                 if kind in ("s", "t", "v")]
+        uniq_axes = [(p[0], vals[ai]) for ai, (kind, _i, _s, p)
+                     in enumerate(asm.axes) if kind == "u"] + \
+            [(fld, vals[ai]) for fld, ai in asm.uniq_shared]
+        q_axes = [(p[0], vals[ai]) for ai, (kind, _i, _s, p)
+                  in enumerate(asm.axes) if kind == "q"]
+        fields = [(fld, asm.numerics[fld].vmin, sums[idxs].tolist(),
+                   mn[idxs].tolist(), mx[idxs].tolist())
+                  for fld, (sums, mn, mx) in stats_np.items()]
         partials = []
-        for idx in np.nonzero(counts)[0].tolist():
-            cnt = int(counts[idx])
-            fs = {}
-            for fld, (sums, mn, mx) in stats_np.items():
-                vmin = asm.numerics[fld].vmin
-                fs[fld] = (int(sums[idx]) + cnt * vmin,
-                           (int(mn[idx]) & 0xFFFFFFFF) + vmin,
-                           (int(mx[idx]) & 0xFFFFFFFF) + vmin)
-            kp, uniq, qv = self._key_parts(asm, idx)
-            partials.append((kp, cnt, fs, uniq, qv))
+        for j, cnt in enumerate(cnts):
+            fs = {fld: (su[j] + cnt * vmin, (lo[j] & 0xFFFFFFFF) + vmin,
+                        (hi[j] & 0xFFFFFFFF) + vmin)
+                  for fld, vmin, su, lo, hi in fields}
+            partials.append((tuple((kind, v[j]) for kind, v in keyed), cnt,
+                             fs, {fld: v[j] for fld, v in uniq_axes},
+                             {fld: v[j] for fld, v in q_axes}))
         return partials
 
     # ---- query seams ----
@@ -376,44 +530,108 @@ class TorchBatchRunner:
         cand = self._rows_mask(part, layout, dict.fromkeys(bss))
         return tree, planner.args, layout, planner.has_maybe, cand
 
-    def _count_device_part(self, layout) -> None:
-        self.stats_counters["device_parts"] += 1
+    def _count_device_part(self, part, layout) -> None:
+        self.stats_counters["device_parts"] += \
+            getattr(part, "num_segments", 0) or 1
         self.stats_counters["device_rows"] += layout.nrows
 
-    def _download(self, d, m, cand, has_maybe: bool, rlp: int):
-        """Host copies of the definite and maybe rows among `cand`
-        (maybe None when there are none)."""
+    def _unpack(self, host: list, rlp: int):
+        """(definite, maybe or None) bool rows from downloaded packed
+        bitmaps."""
+        d_np = np.unpackbits(host[0][0])[:rlp].astype(bool)
+        m_np = None
+        if host[0].shape[0] > 1:
+            m_np = np.unpackbits(host[0][1])[:rlp].astype(bool)
+            self.stats_counters["maybe_rows"] += int(m_np.sum())
+        return d_np, m_np
+
+    def _rows_download(self, d, m, cand, has_maybe: bool, rlp: int,
+                       finish) -> Download:
+        """The definite and maybe rows among `cand`, bit-packed, on
+        their way to the host; `finish(d_np, m_np)` at harvest."""
         packed = [packbits(d & cand)]
         if has_maybe and m is not None:
             packed.append(packbits(m & cand))
-        host = torch.stack(packed).cpu().numpy()
-        d_np = np.unpackbits(host[0])[:rlp].astype(bool)
-        m_np = np.unpackbits(host[1])[:rlp].astype(bool) \
-            if len(packed) > 1 else None
-        if m_np is not None:
-            self.stats_counters["maybe_rows"] += int(m_np.sum())
-        return d_np, m_np
+        return Download([torch.stack(packed)],
+                        lambda host: finish(*self._unpack(host, rlp)))
+
+    def _download(self, d, m, cand, has_maybe: bool, rlp: int):
+        """Host copies of the definite and maybe rows among `cand`
+        (maybe None when there are none), waited for now."""
+        return self._rows_download(d, m, cand, has_maybe, rlp,
+                                   lambda d_np, m_np: (d_np, m_np)).harvest()
+
+    def run_part_submit(self, f, part, bss: dict):
+        """Plan the filter over the candidate blocks, launch it and
+        start the download of its bitmaps; the handle's harvest() gives
+        block_idx -> bool bitmap, bit-identical to the host executor.
+        A tree the planner declines walks leaf by leaf now (Ready), or,
+        over a packed part, gives None: the pack runs member by member."""
+        prog = self._program(f, part, bss)
+        if prog is None:
+            if getattr(part, "num_segments", 0):
+                return None
+            bms, on_card = self._run_leaves(f, part, bss)
+            if on_card:
+                self._count_device_part(part, self.layout(part))
+            else:
+                self.stats_counters["host_parts"] += 1
+            return Ready(bms)
+        tree, args, layout, has_maybe, cand = prog
+        self._count_device_part(part, layout)
+        if tree in (("true",), ("false",)):
+            return Ready({bi: np.full(bs.nrows, tree == ("true",))
+                          for bi, bs in bss.items()})
+        d, m = eval_node(tree, args, layout.nrows_padded, self.device)
+        return self._rows_download(
+            d, m, cand, has_maybe, layout.nrows_padded,
+            lambda d_np, m_np: settle_maybe(f, bss, layout, d_np, m_np))
 
     def run_part(self, f, part, bss: dict) -> dict:
         """block_idx -> bool bitmap of the filter over the candidate
         blocks, bit-identical to the host executor."""
-        prog = self._program(f, part, bss)
+        return self.run_part_submit(f, part, bss).harvest()
+
+    def run_part_topk_submit(self, f, part, bss: dict, spec: SortSpec):
+        """The submit form of `run_part_topk`: a handle, or None where
+        the part declines.  Over a packed part each member keeps the
+        rows at or above its own k-th best key (topk_rows_packed), as
+        its own run would; a declined pack runs member by member."""
+        packed = getattr(part, "num_segments", 0)
+        layout = self.layout(part)
+        sn = self.stage_numeric(part, spec.field, layout)
+        prog = None
+        if sn is not None and all(bi in sn.eligible for bi in bss) and \
+                sn.vmax - sn.vmin <= TOPK_SCORE_MAX:
+            prog = self._program(f, part, bss)
         if prog is None:
-            bms, on_card = self._run_leaves(f, part, bss)
-            if on_card:
-                self._count_device_part(self.layout(part))
-            else:
-                self.stats_counters["host_parts"] += 1
-            return bms
+            if not packed:
+                self.stats_counters["topk_declines"] += 1
+            return None
         tree, args, layout, has_maybe, cand = prog
-        self._count_device_part(layout)
-        if tree in (("true",), ("false",)):
-            return {bi: np.full(bs.nrows, tree == ("true",))
-                    for bi, bs in bss.items()}
-        d, m = eval_node(tree, args, layout.nrows_padded, self.device)
-        d_np, m_np = self._download(d, m, cand, has_maybe,
-                                    layout.nrows_padded)
-        return settle_maybe(f, bss, layout, d_np, m_np)
+        self._count_device_part(part, layout)
+        self.stats_counters["topk_parts"] += packed or 1
+        if tree == ("false",):
+            return Ready({bi: np.zeros(bs.nrows, dtype=bool)
+                          for bi, bs in bss.items()})
+        rlp = layout.nrows_padded
+        d, m = eval_node(tree, args, rlp, self.device)
+        m = m & cand if has_maybe and m is not None else None
+        k = min(spec.k, rlp)
+        if packed:
+            d, m = topk_rows_packed(
+                d & cand, m, sn.values, k, spec.desc,
+                self.stage_segments(part, layout),
+                self.stage_seg_slots(part, layout, k))
+        else:
+            d, m = topk_rows(d & cand, m, sn.values, k, spec.desc)
+
+        def finish(d_np, m_np):
+            self.stats_counters["topk_rows"] += int(d_np.sum()) + (
+                0 if m_np is None else int(m_np.sum()))
+            return settle_maybe(f, bss, layout, d_np, m_np)
+
+        return self._rows_download(d, m, cand, m is not None, rlp, finish)
 
     def run_part_topk(self, f, part, bss: dict, spec: SortSpec):
         """block_idx -> bitmap of the filter's rows at or above the
@@ -423,31 +641,8 @@ class TorchBatchRunner:
         is not int-typed, a staged range over TOPK_SCORE_MAX, or a tree
         the planner cannot express (`topk_declines`).  `topk_rows`
         counts the rows it downloads."""
-        layout = self.layout(part)
-        sn = self.stage_numeric(part, spec.field, layout)
-        if sn is None or any(bi not in sn.eligible for bi in bss) or \
-                sn.vmax - sn.vmin > TOPK_SCORE_MAX:
-            self.stats_counters["topk_declines"] += 1
-            return None
-        prog = self._program(f, part, bss)
-        if prog is None:
-            self.stats_counters["topk_declines"] += 1
-            return None
-        tree, args, layout, has_maybe, cand = prog
-        self._count_device_part(layout)
-        self.stats_counters["topk_parts"] += 1
-        if tree == ("false",):
-            return {bi: np.zeros(bs.nrows, dtype=bool)
-                    for bi, bs in bss.items()}
-        rlp = layout.nrows_padded
-        d, m = eval_node(tree, args, rlp, self.device)
-        m = m & cand if has_maybe and m is not None else None
-        d, m = topk_rows(d & cand, m, sn.values, min(spec.k, rlp),
-                         spec.desc)
-        d_np, m_np = self._download(d, m, cand, m is not None, rlp)
-        self.stats_counters["topk_rows"] += int(d_np.sum()) + (
-            0 if m_np is None else int(m_np.sum()))
-        return settle_maybe(f, bss, layout, d_np, m_np)
+        pending = self.run_part_topk_submit(f, part, bss, spec)
+        return None if pending is None else pending.harvest()
 
     # ---- the per-leaf path of a tree the planner declines ----
 
@@ -459,28 +654,89 @@ class TorchBatchRunner:
 
     # ---- stats ----
 
-    def _reduce(self, asm: AxesAssembly, spec: StatsSpec, mask) -> list:
-        """Partials of the rows of `mask` (bool[RLp] on the card): one
-        count launch, or one value-reduction call for all value
-        columns."""
+    def _reduce_submit(self, asm: AxesAssembly, spec: StatsSpec, mask):
+        """Launch the reduction of the rows of `mask` (bool[RLp] on the
+        card): one count launch, or one value-reduction call for all
+        value columns.  Returns (tensors to download, decode(host arrays)
+        -> partials).  A packed unit's member axis goes to the count as
+        its segment axis (nseg members x the other axes' cells); the
+        value reduction takes it folded into the cell id (member * nb +
+        cell, one axis of nseg * nb cells), both seg-major."""
         rlp = mask.shape[0]
-        if asm.axes:
-            ids = combine_ids([a[1] for a in asm.axes], asm.strides)
-        else:
-            ids = torch.zeros(rlp, dtype=torch.int32, device=self.device)
-        stats_np = {}
+        ids = combine_ids([a[1] for a in asm.axes], asm.strides) \
+            if asm.axes else \
+            torch.zeros(rlp, dtype=torch.int32, device=self.device)
         if spec.value_fields:
-            packed = stats_values(
+            out = stats_values(
                 [asm.numerics[fld].values for fld in spec.value_fields],
-                ids, mask, asm.nb).cpu()
-            for fld, row in zip(spec.value_fields, packed):
-                cnt, sums, mn, mx = split_values(row, asm.nb)
-                counts = cnt.numpy()
-                stats_np[fld] = (sums.numpy(), mn.numpy(), mx.numpy())
+                ids, mask, asm.nb)
+
+            def decode(host):
+                stats_np = {}
+                for fld, row in zip(spec.value_fields,
+                                    torch.from_numpy(host[0])):
+                    cnt, sums, mn, mx = split_values(row, asm.nb)
+                    counts = cnt.numpy()
+                    stats_np[fld] = (sums.numpy(), mn.numpy(), mx.numpy())
+                return self._partials(asm, counts, stats_np)
+            return [out], decode
+        if asm.nseg:
+            rest = asm.axes[1:]
+            base = combine_ids([a[1] for a in rest], asm.strides[1:]) \
+                if rest else torch.zeros_like(ids)
+            out = stats_count_seg(asm.axes[0][1], base, mask, asm.nseg,
+                                  asm.nb // asm.nseg)
         else:
-            counts = stats_count_seg(None, ids, mask, 1, asm.nb).cpu() \
-                .numpy()
-        return self._partials(asm, counts, stats_np)
+            out = stats_count_seg(None, ids, mask, 1, asm.nb)
+        return [out], lambda host: self._partials(asm, host[0], {})
+
+    def _reduce(self, asm: AxesAssembly, spec: StatsSpec, mask) -> list:
+        """Partials of the rows of `mask`, waited for now."""
+        tensors, decode = self._reduce_submit(asm, spec, mask)
+        return Download(tensors, decode).harvest()
+
+    def run_part_stats_submit(self, f, part, bss: dict, spec: StatsSpec):
+        """The submit form of `run_part_stats`: the handle's harvest()
+        gives (bitmaps, handled, partials).  Over a packed part (`spec`
+        with its member axis) the partials' keys lead with ("s",
+        member); where the pack's axes cannot stage or the planner
+        declines its tree, None: the pack runs member by member."""
+        packed = getattr(part, "num_segments", 0)
+        asm = self._assemble_axes(part, spec)
+        if asm is None or any(bi not in el for el in asm.eligibility
+                              for bi in bss):
+            if packed:
+                return None
+            return _Then(self.run_part_submit(f, part, bss),
+                         lambda bms: (bms, set(), []))
+        prog = self._program(f, part, bss)
+        if prog is None:
+            if packed:
+                return None
+            return Ready(self._run_part_stats_unfused(f, part, bss, spec,
+                                                      asm))
+        tree, args, layout, has_maybe, cand = prog
+        self._count_device_part(part, layout)
+        handled = set(bss)
+        if tree == ("false",):
+            return Ready(({}, handled, []))
+        rlp = layout.nrows_padded
+        d, m = eval_node(tree, args, rlp, self.device)
+        tensors, decode = self._reduce_submit(asm, spec, d & cand)
+        maybe = has_maybe and m is not None
+        if maybe:
+            tensors.append(packbits(m & cand))
+
+        def finish(host):
+            partials = decode(host)
+            if maybe:
+                m_np = np.unpackbits(host[1])[:rlp].astype(bool)
+                self.stats_counters["maybe_rows"] += int(m_np.sum())
+                partials.extend(residue_partials(f, bss, spec, layout,
+                                                 m_np, part))
+            return {}, handled, partials
+
+        return Download(tensors, finish)
 
     def run_part_stats(self, f, part, bss: dict, spec: StatsSpec):
         """(bitmaps, handled, partials): the filter and the stats of one
@@ -488,27 +744,7 @@ class TorchBatchRunner:
         parts, count, value stats, uniq values, quantile numbers) as
         `_partials` and fused.residue_partials build them; bitmaps
         cover the rest."""
-        asm = self._assemble_axes(part, spec)
-        if asm is None or any(bi not in el for el in asm.eligibility
-                              for bi in bss):
-            return self.run_part(f, part, bss), set(), []
-        prog = self._program(f, part, bss)
-        if prog is None:
-            return self._run_part_stats_unfused(f, part, bss, spec, asm)
-        tree, args, layout, has_maybe, cand = prog
-        self._count_device_part(layout)
-        handled = set(bss)
-        if tree == ("false",):
-            return {}, handled, []
-        rlp = layout.nrows_padded
-        d, m = eval_node(tree, args, rlp, self.device)
-        partials = self._reduce(asm, spec, d & cand)
-        if has_maybe and m is not None:
-            m_np = np.unpackbits(packbits(m & cand).cpu().numpy())[:rlp] \
-                .astype(bool)
-            self.stats_counters["maybe_rows"] += int(m_np.sum())
-            partials.extend(residue_partials(f, bss, spec, layout, m_np))
-        return {}, handled, partials
+        return self.run_part_stats_submit(f, part, bss, spec).harvest()
 
     def _run_part_stats_unfused(self, f, part, bss: dict,
                                 spec: StatsSpec, asm: AxesAssembly):
@@ -535,7 +771,7 @@ class TorchBatchRunner:
             on_card = True
             partials = self._reduce(asm, spec, self.put(mask))
         if on_card:
-            self._count_device_part(layout)
+            self._count_device_part(part, layout)
         else:
             self.stats_counters["host_parts"] += 1
         return bms, handled, partials
@@ -608,3 +844,17 @@ class _LeafWalk:
         d_np, m_np = r._download(d, m, cand, planner.has_maybe, rlp)
         out = settle_maybe(f, bss, self.layout, d_np, m_np)
         return {bi: bm & care[bi] for bi, bm in out.items()}
+
+
+def _scan_fields(f, out: set) -> set:
+    """The fields of the filter's leaves that plan as scans."""
+    if isinstance(f, (F.FilterAnd, F.FilterOr)):
+        for sub in f.filters:
+            _scan_fields(sub, out)
+    elif isinstance(f, F.FilterNot):
+        _scan_fields(f.inner, out)
+    else:
+        plan = device_plan(f)
+        if plan is not None and plan.field != "_time":
+            out.add(plan.field)
+    return out

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import to_device
+
 from .build import check, check_cuda, kernel, stream_ptr
 
 PROBE_TILE_B = 128     # block-axis padding of staged planes
@@ -110,8 +112,8 @@ def pad_probe_args(idx: np.ndarray, shift: np.ndarray, bp: int):
 def stage_bloom_plane(plb, device) -> StagedBloomPlane:
     plane, nw = pad_plane(plb.plane, plb.nwords)
     return StagedBloomPlane(
-        plane=torch.from_numpy(plane.view(np.int32)).to(device),
-        nwords=torch.from_numpy(nw).to(device), bp=plane.shape[0],
+        plane=to_device(plane.view(np.int32), device),
+        nwords=to_device(nw, device), bp=plane.shape[0],
         nbytes=plane.nbytes + nw.nbytes)
 
 

@@ -39,7 +39,8 @@ the runner then walks the tree leaf by leaf (gpu/batch.py).
 
 `topk_rows` is the sort prefilter's k-selection over a program's masks
 (`torch.topk`: the JAX package's `lax.top_k` also runs outside any
-Pallas kernel).
+Pallas kernel), `topk_rows_packed` its per-member form over a packed
+unit.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import to_device
 from ..logsql import filters as F
 from ..logsql.matchers import is_word_char, parse_number
 from ..logsql.stats_funcs import format_number
@@ -161,9 +163,9 @@ def stage_layout_column(part, field: str, layout: StatsLayout,
             fill(slice(start, start + n), payload)
     has_ovf = bool(ovf.any())
     return FusedField(
-        lanes=torch.from_numpy(to_lanes32(mat).view(np.int32)).to(device),
-        lengths=torch.from_numpy(lens).to(device), width=w,
-        ovf=torch.from_numpy(ovf).to(device) if has_ovf else None,
+        lanes=to_device(to_lanes32(mat).view(np.int32), device),
+        lengths=to_device(lens, device), width=w,
+        ovf=to_device(ovf, device) if has_ovf else None,
         nbytes=rlp * (w + 5))
 
 
@@ -632,6 +634,25 @@ def topk_rows(d, m, values, k: int, desc: bool):
     return out_d, m & (torch.where(m, v, -1) >= kv)
 
 
+def topk_rows_packed(d, m, values, k: int, desc: bool, seg_ids, seg_map):
+    """`topk_rows` of a packed unit: each member's own k-th best score.
+    seg_map is int32[S, Lp] (gpu/stats_seg.build_seg_slot_map, Lp >= k):
+    the members' rows gather into their own slot rows, padding slots
+    score -1 as non-matches do, one `torch.topk` over the slot axis
+    gives every member's threshold at once, and seg_ids (int32[RLp])
+    scatters it back to the rows: each member keeps exactly the rows
+    its own `topk_rows` keeps (the JAX package's packed
+    `_topk_dispatch`)."""
+    v = values if desc else TOPK_SCORE_MAX - values
+    s = torch.where(d, v, -1)
+    s2 = torch.where(seg_map >= 0, s[seg_map.clamp(min=0).long()], -1)
+    thr = torch.topk(s2, k, dim=1).values[:, k - 1][seg_ids.long()]
+    out_d = d & (s >= thr)
+    if m is None:
+        return out_d, None
+    return out_d, m & (torch.where(m, v, -1) >= thr)
+
+
 # ---------------- host residue: settle the maybe rows ----------------
 
 def settle_maybe(f, bss, layout, d_np: np.ndarray, m_np) -> dict:
@@ -651,11 +672,13 @@ def settle_maybe(f, bss, layout, d_np: np.ndarray, m_np) -> dict:
     return out
 
 
-def residue_partials(f, bss, spec, layout, m_np: np.ndarray) -> list:
+def residue_partials(f, bss, spec, layout, m_np: np.ndarray,
+                     part=None) -> list:
     """One partial per maybe row the filter accepts on the host, keyed
     exactly like the device cells: (key parts, 1, value stats, uniq
     values, quantile values) for stats spec `spec`
-    (gpu/stats_device.py)."""
+    (gpu/stats_device.py).  A "seg" key (a packed unit's member axis)
+    is the member of the row's block in `part`, a PackedPart."""
     partials = []
     for bi, bs in bss.items():
         start = layout.starts[bi]
@@ -672,7 +695,9 @@ def residue_partials(f, bss, spec, layout, m_np: np.ndarray) -> list:
         for i in rows.tolist():
             key_parts = []
             for bk in spec.by:
-                if bk.kind == "time":
+                if bk.kind == "seg":
+                    key_parts.append(("s", part.segment_of_block(bi)))
+                elif bk.kind == "time":
                     t = int(ts[i])
                     key_parts.append(("t", (t - bk.offset) // bk.step
                                       * bk.step + bk.offset))

@@ -56,7 +56,8 @@ class FuncSpec:
 
 @dataclass
 class ByKey:
-    kind: str           # 'time' | 'field' | 'numbucket'
+    kind: str           # 'time' | 'field' | 'numbucket' | 'seg' (the
+    #                     member axis of a packed unit, with_segment_axis)
     name: str = ""      # field name ('field' / 'numbucket')
     step: int = 0       # ns ('time')
     offset: int = 0     # ns ('time')
@@ -71,6 +72,20 @@ class StatsSpec:
     value_fields: list     # distinct value columns, staging order
     uniq_fields: list      # distinct count_uniq fields
     quantile_fields: list  # distinct quantile/median fields
+
+
+def with_segment_axis(spec: StatsSpec) -> StatsSpec:
+    """The spec of a packed unit (gpu/pipeline.py): a LEADING member
+    axis (ByKey "seg"), so one reduction over several concatenated small
+    parts yields each member's partials.  gpu/batch.py stages the
+    per-row member ids from the pack's block -> member map, and every
+    partial's key parts lead with ("s", member); the pipeline strips it
+    and absorbs each member's partials in member order, the serial
+    walk's granularity."""
+    return StatsSpec(by=[ByKey("seg")] + list(spec.by), funcs=spec.funcs,
+                     value_fields=spec.value_fields,
+                     uniq_fields=spec.uniq_fields,
+                     quantile_fields=spec.quantile_fields)
 
 
 def _one_field(fn, allow_time: bool = True) -> str | None:

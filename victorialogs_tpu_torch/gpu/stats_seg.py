@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .build import check, check_cuda, kernel, stream_ptr
@@ -183,3 +184,35 @@ def stats_values(columns, ids: torch.Tensor, mask: torch.Tensor,
 
 
 stats_values.launches = 0
+
+
+# ---- the seg slot grid of a packed unit (host numpy) ----
+
+SLOT_CHUNK = 1024      # the slot axis is a multiple of this
+
+
+def pad_slots(n: int, k: int = 0) -> int:
+    """Slot-axis length: a SLOT_CHUNK multiple >= max(n, k, 1)."""
+    need = max(n, k, 1)
+    return -(-need // SLOT_CHUNK) * SLOT_CHUNK
+
+
+def build_seg_slot_map(part, layout, min_len: int = 0) -> np.ndarray:
+    """int32[S, Lp]: the layout row of member s's slot j of a packed
+    part, -1 on padding slots (the JAX package's
+    tpu/stats_seg.py build_seg_slot_map).  Members occupy contiguous
+    row ranges of the pack layout, so the table is host arithmetic over
+    the block map; the packed top-k selects on it."""
+    nseg = part.num_segments
+    starts, lens = [], []
+    for mi in range(nseg):
+        first = part.block_offset(mi)
+        nxt = part.block_offset(mi + 1) if mi + 1 < nseg else \
+            part.num_blocks
+        starts.append(layout.starts[first])
+        lens.append(sum(part.block_rows(bi) for bi in range(first, nxt)))
+    idx = np.full((nseg, pad_slots(max(lens), min_len)), -1,
+                  dtype=np.int32)
+    for mi, (st, ln) in enumerate(zip(starts, lens)):
+        idx[mi, :ln] = np.arange(st, st + ln, dtype=np.int32)
+    return idx

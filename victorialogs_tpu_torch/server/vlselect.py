@@ -27,9 +27,14 @@ a JSON object `{"field": ["v1", "v2"], ...}` becomes `field:in(v1, v2)`
 filters, anything else is parsed as a LogsQL filter (HTTPError(400)
 when it does not parse).
 
-Not here yet: the HTTP server, tracing (the `trace` key of the
-reference's answers), the active-query registry and slow-query log,
-`timeout` deadlines, and the facets and tail endpoints.
+`trace=1` (or `true`, `yes`) traces the query (obs/tracing.py): the
+root span is `query`; `handle_query` adds one last NDJSON line
+`{"_trace": {...}}` after row lines byte-identical to the untraced
+answer, and the other handlers add a `"trace"` key.  Without it no span
+is made.
+
+Not here yet: the HTTP server, the active-query registry and slow-query
+log, `timeout` deadlines, and the facets and tail endpoints.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..logsql.filters import FilterAnd, FilterIn
 from ..logsql.parser import (MAX_TS, MIN_TS, ParseError, Query,
                              parse_filter_string, parse_query)
 from ..logsql.pipes import ByField, PipeLimit, PipeOffset, PipeStats
+from ..obs import tracing
 from .insertutil import get_tenant_id, parse_timestamp
 
 
@@ -148,6 +154,26 @@ def _apply_extra_filters(q: Query, ef: str) -> None:
         q.filter = FilterAnd([extra, q.filter])
 
 
+def want_trace(args) -> bool:
+    return args.get("trace", "") in ("1", "true", "yes")
+
+
+def _trace_root(args, q: Query):
+    """The root span of a traced request, else None (no span at all)."""
+    if want_trace(args):
+        return tracing.make_root("query", query=q.to_string())
+    return None
+
+
+def _collect_traced(storage, tenants, q: Query, args, runner):
+    """run_query_collect_columns under the request's trace: ((cols,
+    nrows), the span tree or None)."""
+    root = _trace_root(args, q)
+    with tracing.activate(root):
+        got = run_query_collect_columns(storage, tenants, q, runner=runner)
+    return got, None if root is None else root.to_dict()
+
+
 def _query_pipes(q: Query, args) -> None:
     """/select/logsql/query: offset and limit pushdown."""
     limit = _int_arg(args, "limit", 1000)
@@ -172,7 +198,13 @@ def handle_query(storage, args, headers, runner=CARD) -> list[bytes]:
         if data:
             chunks.append(data)
 
-    run_query(storage, tenants, q, sink, runner=runner)
+    root = _trace_root(args, q)
+    with tracing.activate(root):
+        run_query(storage, tenants, q, sink, runner=runner)
+    if root is not None:
+        chunks.append((json.dumps({"_trace": root.to_dict()},
+                                  ensure_ascii=False,
+                                  separators=(",", ":")) + "\n").encode())
     return chunks
 
 
@@ -191,8 +223,7 @@ def handle_stats_query(storage, args, headers, runner=CARD) -> dict:
     if runner is CARD:
         runner = card_runner(storage)
     ts = _parse_time_arg(args.get("time", ""), time.time_ns(), end=True)
-    cols, nrows = run_query_collect_columns(storage, tenants, q,
-                                            runner=runner)
+    (cols, nrows), tree = _collect_traced(storage, tenants, q, args, runner)
     by_names = [b.name for b in sp.by]
     by_cols = [cols.get(n) or [""] * nrows for n in by_names]
     fn_cols = [cols.get(fn.out_name) or [""] * nrows for fn in sp.funcs]
@@ -204,8 +235,11 @@ def handle_stats_query(storage, args, headers, runner=CARD) -> dict:
                 if bc[i] != "":
                     metric[n] = bc[i]
             result.append({"metric": metric, "value": [ts / 1e9, vc[i]]})
-    return {"status": "success",
-            "data": {"resultType": "vector", "result": result}}
+    out = {"status": "success",
+           "data": {"resultType": "vector", "result": result}}
+    if tree is not None:
+        out["trace"] = tree
+    return out
 
 
 def _step_arg(args) -> str:
@@ -237,7 +271,7 @@ def handle_hits(storage, args, headers, runner=CARD) -> dict:
     fields = _hits_pipes(q, args)
     if runner is CARD:
         runner = card_runner(storage)
-    cols, n = run_query_collect_columns(storage, tenants, q, runner=runner)
+    (cols, n), tree = _collect_traced(storage, tenants, q, args, runner)
     tcol = cols.get("_time") or [""] * n
     hcol = cols.get("hits") or [""] * n
     fcols = [cols.get(f) or [""] * n for f in fields]
@@ -250,7 +284,10 @@ def handle_hits(storage, args, headers, runner=CARD) -> dict:
         hits = int(hcol[i] or "0")
         g["values"].append(hits)
         g["total"] += hits
-    return {"hits": sorted(groups.values(), key=lambda g: -g["total"])}
+    out = {"hits": sorted(groups.values(), key=lambda g: -g["total"])}
+    if tree is not None:
+        out["trace"] = tree
+    return out
 
 
 def _stats_range_pipes(q: Query, args) -> PipeStats:
@@ -270,8 +307,7 @@ def handle_stats_query_range(storage, args, headers, runner=CARD) -> dict:
     sp = _stats_range_pipes(q, args)
     if runner is CARD:
         runner = card_runner(storage)
-    cols, nrows = run_query_collect_columns(storage, tenants, q,
-                                            runner=runner)
+    (cols, nrows), tree = _collect_traced(storage, tenants, q, args, runner)
     series: dict = {}
     by_names = [b.name for b in sp.by if b.name != "_time"]
     tcol = cols.get("_time") or [""] * nrows
@@ -289,6 +325,9 @@ def handle_stats_query_range(storage, args, headers, runner=CARD) -> dict:
             s["values"].append([t / 1e9, vc[i]])
     for s in series.values():
         s["values"].sort()
-    return {"status": "success",
-            "data": {"resultType": "matrix",
-                     "result": list(series.values())}}
+    out = {"status": "success",
+           "data": {"resultType": "matrix",
+                    "result": list(series.values())}}
+    if tree is not None:
+        out["trace"] = tree
+    return out
