@@ -38,9 +38,17 @@ Phases, each fatal on failure:
    multibyte mask (`check_fold`).
 3. main path: ingest 2M generated rows as a user sends them, through
    /insert/jsonline (`handle_jsonline`, the generator's JSON-lines
-   bodies) into a Storage with 2 flushes, which must give 2 parts of 1M
-   rows in 64 blocks each with no chunk of the bodies parsed in Python
-   (`INGEST_COUNTERS["py_chunks"]` 0); ingest ROUTE_ROWS generator rows
+   bodies) into a durable Storage in a temporary directory (removed at
+   exit, also on failure) with 2 flushes, which must give 2 parts of 1M
+   rows in 64 blocks each on disk with no chunk of the bodies parsed in
+   Python (`INGEST_COUNTERS["py_chunks"]` 0), a line a flush with its
+   write seconds and its compressed and uncompressed bytes; take
+   DURABLE_QUERIES' answers and the `error` rows' digest, close the
+   store and reopen it from its directory (`durable_reopen`): `count()`
+   must equal the rows the handler acknowledged and every answer must
+   be the same, and the cold first query (a fresh runner: files read,
+   decompressed, staged) is timed beside the next; every query below
+   runs over the reopened store; ingest ROUTE_ROWS generator rows
    by rows, by /insert/jsonline and by Elasticsearch _bulk
    (`handle_elasticsearch_bulk`) into one flush each, whose three parts
    must be equal; one line a route gives rows/s, us a row, the body's
@@ -58,8 +66,10 @@ Phases, each fatal on failure:
    alone, no standalone probe or scan).  Every kernel's launch counter
    is zeroed right before this phase, and each kernel of the main path
    (scan, gated scan, count, value reduction, pair) must move; the
-   planner launches no standalone probe.  `anycase` (`i(ERROR)`) must
-   return `phrase`'s rows.  The runner's staged bytes are logged.  Each
+   planner launches no standalone probe.  `anycase` (`i(ERROR)`) and
+   `anycase_prefix` (`i(RESP*)`) must return the host executor's rows of
+   `phrase` and `prefix`, run just before them (ANYCASE_TWINS; no host
+   run of their own).  The runner's staged bytes are logged.  Each
    row query (`phrase`, `prefix`, `substring`, `bloom`, `regex_pair`,
    `regex_verify`, `anycase`, `anycase_prefix`) also answers as a user
    pulls it: its full NDJSON export (`run_query` with
@@ -170,10 +180,13 @@ Phases, each fatal on failure:
    (`sweep`), and
    the gated scan behind gates of 64, 1,000 and 1,100 blocks with 6 and
    30 probes a block (`gate_sweep`), each held against its plain version
-   and timed beside its bound; the card's name and power limit, then a
-   JSON line of kernel figures, each query's answer figures
-   (`answers`) and each route's ingest figures (`ingest`), and a last
-   JSON line with the device.
+   and timed beside its bound; then `must_force_merge` of the main
+   store (2 parts into one of 2M rows), after which `count()`, the
+   hourly counts and the `error` rows must equal their answers before
+   the close (`durable_force_merge`); the card's name and power limit,
+   then a JSON line of kernel figures, each query's answer figures
+   (`answers`), each route's ingest figures (`ingest`) and the durable
+   store's (`durable`), and a last JSON line with the device.
 
 Every time says where it came from: the profiler's device time, or CUDA
 events around back-to-back calls (which also count the host launch path)
@@ -186,10 +199,13 @@ this script.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1440,20 +1456,25 @@ def flush_body(route: str, n: int, seed: int, start: int, span: int):
     return (gen.jsonline_body if route == "jsonline" else gen.bulk_body)(rows)
 
 
-def store_by_route(route: str, batches: list):
+def store_by_route(route: str, batches: list, path: str | None = None):
     """A Storage on the card fed one flush a batch, each sent as a user
     sends it: `rows` (a list of generator rows: LogRows ->
     must_add_rows), `jsonline` (handle_jsonline) or `bulk`
-    (handle_elasticsearch_bulk) with a body.  (storage, figures: rows,
-    body bytes, the seconds in the handler and in the flush)."""
+    (handle_elasticsearch_bulk) with a body.  With `path` the store is
+    durable (its flush_interval an hour: each batch is one flush, one
+    part on disk).  (storage, figures: rows, body bytes, the seconds in
+    the handler and in the flush; with `path`, per flush its seconds and
+    the compressed and uncompressed bytes it wrote)."""
     from victorialogs_tpu_torch.server import insertutil, vlinsert
     from victorialogs_tpu_torch.storage.log_rows import LogRows, TenantID
     from victorialogs_tpu_torch.storage.storage import Storage
-    storage = Storage(device="cuda")
+    storage = Storage(path, flush_interval=3600, device="cuda")
     cp = insertutil.CommonParams(tenant=TenantID(0, 0),
                                  stream_fields=INGEST_STREAM_FIELDS)
     fig = {"route": route, "rows": 0, "body_bytes": 0, "handler_s": 0.0,
            "flush_s": 0.0}
+    if path is not None:
+        fig["flushes"] = []
     for batch in batches:
         t0 = time.perf_counter()
         if route == "rows":
@@ -1477,6 +1498,7 @@ def store_by_route(route: str, batches: list):
             lmp.flush()
             fig["body_bytes"] += len(batch)
         t1 = time.perf_counter()
+        before = storage.update_stats()
         storage.debug_flush()
         t2 = time.perf_counter()
         if n != want:
@@ -1484,17 +1506,27 @@ def store_by_route(route: str, batches: list):
         fig["rows"] += n
         fig["handler_s"] += t1 - t0
         fig["flush_s"] += t2 - t1
+        if path is not None:
+            after = storage.update_stats()
+            fig["flushes"].append({
+                "write_s": t2 - t1, "rows": n,
+                "compressed_bytes":
+                    after["compressed_size"] - before["compressed_size"],
+                "uncompressed_bytes":
+                    after["uncompressed_size"] - before["uncompressed_size"]})
     secs = fig["handler_s"] + fig["flush_s"]
     fig["rows_per_s"] = fig["rows"] / secs
     fig["us_per_row"] = secs / fig["rows"] * 1e6
     return storage, fig
 
 
-def ingest_route(route: str, total: int, flushes: int, seed: int):
+def ingest_route(route: str, total: int, flushes: int, seed: int,
+                 path: str | None = None):
     """ingest()'s store (the same generator rows for the same seed),
-    each flush's rows sent by `route` (store_by_route).  The flushes'
-    bodies are made in parallel, one process a flush (set-up, timed
-    apart as `setup_s`).  (storage, start, rows, figures)."""
+    each flush's rows sent by `route` (store_by_route; durable under
+    `path`).  The flushes' bodies are made in parallel, one process a
+    flush (set-up, timed apart as `setup_s`).  (storage, start, rows,
+    figures)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
@@ -1510,7 +1542,7 @@ def ingest_route(route: str, total: int, flushes: int, seed: int):
             mp_context=multiprocessing.get_context("spawn")) as ex:
         batches = list(ex.map(flush_body, *zip(*args)))
     setup_s = time.perf_counter() - t0
-    storage, fig = store_by_route(route, batches)
+    storage, fig = store_by_route(route, batches, path)
     fig["setup_s"] = setup_s
     return storage, start, per * flushes, fig
 
@@ -1596,6 +1628,138 @@ def route_parity(seed: int):
     return figs, kept
 
 
+# answers of the main store taken before it is closed, held equal after
+# the reopen; the first two (and the phrase rows' digest) also after the
+# final force merge
+DURABLE_QUERIES = ("* | stats count()", "* | stats by (_time:1h) count()",
+                   "error | stats by (app) count()",
+                   "quota | stats by (lvl) count(), sum(dur)",
+                   "error | sort by (dur) desc limit 10",
+                   "error | limit 100")
+PHRASE = "error"
+
+
+def export_digest(storage, tenants, q: str, runner) -> tuple:
+    """(rows, sha256 of the NDJSON export's lines sorted): a result's
+    rows as a multiset, whatever order a walk gives them (the export,
+    not dict rows: a file part decodes its columns at every read, and
+    the export emits the stored bytes)."""
+    import hashlib
+    from victorialogs_tpu_torch.engine.emit import ndjson_block
+    from victorialogs_tpu_torch.engine.searcher import run_query
+    chunks = []
+    run_query(storage, tenants, q, lambda br: chunks.append(ndjson_block(br)),
+              runner=runner)
+    lines = b"".join(chunks).splitlines()
+    lines.sort()
+    return len(lines), hashlib.sha256(b"\n".join(lines)).hexdigest()
+
+
+def durable_answers(storage, tenants, runner) -> dict:
+    """DURABLE_QUERIES' answers and the phrase rows' digest."""
+    from victorialogs_tpu_torch.engine.searcher import run_query_collect
+    out = {q: run_query_collect(storage, tenants, q, runner=runner)
+           for q in DURABLE_QUERIES}
+    out[PHRASE] = export_digest(storage, tenants, PHRASE, runner)
+    return out
+
+
+def durable_reopen(storage, path: str, tenants, rows_sent: int):
+    """Take the answers of the durable main store, close it, reopen it
+    from `path`, and hold the reopened store to every acknowledged row
+    (`count()` against the rows sent) and to the same answers; then time
+    the cold first query (its files read and decompressed, its columns
+    staged by a fresh runner; the file pages are warm: nothing drops
+    them).  (the reopened store, its answers, figures, the runner that
+    answered on it, kept for the main path)."""
+    import torch
+    from victorialogs_tpu_torch.engine.searcher import run_query
+    from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
+    from victorialogs_tpu_torch.storage.storage import Storage
+    runner = TorchBatchRunner(device="cuda")
+    t0 = time.perf_counter()
+    before = durable_answers(storage, tenants, runner)
+    answers_s = time.perf_counter() - t0
+    runner.close()
+    stats = storage.update_stats()
+    t0 = time.perf_counter()
+    storage.close()
+    close_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    storage = Storage(path, device="cuda")
+    reopen_s = time.perf_counter() - t0
+    reopened = storage.update_stats()
+    runner = TorchBatchRunner(device="cuda")
+    t0 = time.perf_counter()
+    run_query(storage, tenants, PHRASE, lambda br: None, runner=runner)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_query(storage, tenants, PHRASE, lambda br: None, runner=runner)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    after = durable_answers(storage, tenants, runner)
+    counted = int(after[DURABLE_QUERIES[0]][0]["count(*)"])
+    if counted != rows_sent:
+        fail(f"the reopened store counts {counted} rows of the "
+             f"{rows_sent} acknowledged")
+    for q in before:
+        if after[q] != before[q]:
+            fail(f"durable: {q!r} answers differently after the reopen")
+    if runner.stats_counters["host_parts"]:
+        fail(f"durable: {runner.stats_counters['host_parts']} parts ran "
+             f"on the host")
+    if (reopened["file_rows"], reopened["small_parts"]) != \
+            (rows_sent, FLUSHES):
+        fail(f"durable: the reopened store holds {reopened}")
+    fig = {"rows_sent": rows_sent, "rows_counted": counted,
+           "parts": reopened["small_parts"],
+           "compressed_bytes": stats["compressed_size"],
+           "uncompressed_bytes": stats["uncompressed_size"],
+           "answers_s": answers_s, "close_s": close_s,
+           "reopen_s": reopen_s, "cold_first_query_s": cold_s,
+           "second_query_s": warm_s, "answers_held": len(before)}
+    log(f"durable: closed in {close_s:.3f} s, reopened in {reopen_s:.3f} s "
+        f"({reopened['small_parts']} parts, {reopened['file_rows']} rows, "
+        f"{stats['compressed_size']} B compressed of "
+        f"{stats['uncompressed_size']} B); count() {counted} of {rows_sent} "
+        f"rows sent; {len(before)} answers equal after the reopen "
+        f"(taken in {answers_s:.2f} s); cold first query {PHRASE!r} "
+        f"{cold_s:.4f} s (files read, decompressed, staged; pages warm), "
+        f"the second {warm_s:.4f} s")
+    return storage, before, fig, runner
+
+
+def durable_force_merge(storage, tenants, runner, before: dict) -> dict:
+    """must_force_merge the main store (its parts into one), then hold
+    count(), the hourly counts and the phrase rows to their answers
+    before the close."""
+    t0 = time.perf_counter()
+    storage.must_force_merge()
+    merge_s = time.perf_counter() - t0
+    parts = [p for pt in storage.partitions.values() for p in pt.parts]
+    if len(parts) != 1 or parts[0].num_rows != ROWS:
+        fail(f"force merge: parts of {[p.num_rows for p in parts]} rows")
+    after = durable_answers(storage, tenants, runner)
+    for q in (DURABLE_QUERIES[0], DURABLE_QUERIES[1], PHRASE):
+        if after[q] != before[q]:
+            fail(f"force merge: {q!r} answers differently")
+    stats = storage.update_stats()
+    fig = {"merge_s": merge_s, "parts": 1, "rows": parts[0].num_rows,
+           "blocks": parts[0].num_blocks,
+           "compressed_bytes": stats["compressed_size"],
+           "uncompressed_bytes": stats["uncompressed_size"]}
+    log(f"durable: force merge of {FLUSHES} parts into one of "
+        f"{parts[0].num_rows} rows in {parts[0].num_blocks} blocks, "
+        f"{merge_s:.2f} s, {stats['compressed_size']} B compressed; "
+        f"count(), hourly counts and {after[PHRASE][0]} phrase rows equal")
+    return fig
+
+
+# query -> the any-case query that must return its rows (queries())
+ANYCASE_TWINS = {"phrase": "anycase", "prefix": "anycase_prefix"}
+
+
 def queries(start: int) -> list:
     """(name, LogsQL, {kernel: launches per device part of the query});
     the query launches no other kernel."""
@@ -1606,10 +1770,12 @@ def queries(start: int) -> list:
     values, pair = "stats_values", "match_pair"
     return [
         ("phrase", "error", {scan: 1}),
-        # next to `phrase`, whose rows it must return, so they are freed
-        # before the other queries run
+        # next to `phrase` (and `anycase_prefix` next to `prefix`), whose
+        # rows it must return, so they are freed before the other
+        # queries run (ANYCASE_TWINS)
         ("anycase", "i(ERROR)", {scan: 1}),
         ("prefix", "resp*", {scan: 1}),
+        ("anycase_prefix", "i(RESP*)", {scan: 1}),
         ("substring", '~"onnect"', {scan: 1}),
         ("time_stats", f"_time:[{lo}, {hi}) warn | stats by (_time:1h) "
                        f"count()", {scan: 1, count: 1}),
@@ -1633,7 +1799,6 @@ def queries(start: int) -> list:
         ("regex_pair", '~"error.*timeout"', {pair: 1}),
         # the literal run "quota " scanned, re.search on its rows
         ("regex_verify", '~"quota (GET|POST)"', {scan: 1}),
-        ("anycase_prefix", "i(RESP*)", {scan: 1}),
         ("regex_stats", '~"error.*timeout" | stats by (app) count()',
          {pair: 1, count: 1}),
     ]
@@ -2450,15 +2615,21 @@ def main() -> int:
         log(json.dumps({"sweep": sweep(rng, dev) + gate_sweep(rng, dev)}))
         return 0
 
-    # phase 3
+    # phase 3: the main store on disk, removed at exit (also on failure)
+    store_dir = tempfile.mkdtemp(prefix="vl_smoke_store_")
+    atexit.register(shutil.rmtree, store_dir, True)
     t0 = time.perf_counter()
     for k in vlinsert.INGEST_COUNTERS:
         vlinsert.INGEST_COUNTERS[k] = 0
     storage, start, nrows, fig = ingest_route("jsonline", ROWS, FLUSHES,
-                                              seed=11)
+                                              seed=11, path=store_dir)
     t_ingest = time.perf_counter() - t0
     counters = dict(vlinsert.INGEST_COUNTERS)
     log_ingest(fig, counters)
+    for k, f in enumerate(fig["flushes"]):
+        log(f"durable flush {k}: {f['rows']} rows written in "
+            f"{f['write_s']:.2f} s, {f['compressed_bytes']} B compressed "
+            f"of {f['uncompressed_bytes']} B")
     fig.update(counters, store="main")
     ingest_figs = [fig]
     main_parts = [p for pt in storage.partitions.values() for p in pt.parts]
@@ -2472,12 +2643,17 @@ def main() -> int:
     if counters["py_chunks"]:
         fail(f"{counters['py_chunks']} chunks of the generator's bodies "
              f"were parsed in Python")
+    tenants = [TenantID(0, 0)]
+    t0 = time.perf_counter()
+    storage, durable_before, durable, runner = durable_reopen(
+        storage, store_dir, tenants, fig["rows"])
+    durable["flushes"] = fig["flushes"]
+    log(f"durable close, reopen and checks: "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     route_figs, rstore = route_parity(seed=13)
     ingest_figs += route_figs
     log(f"ingest routes: {time.perf_counter() - t0:.1f} s")
-    tenants = [TenantID(0, 0)]
-    runner = TorchBatchRunner(device="cuda")
     # units the dispatch window submits before its first harvest
     window = inflight_depth()
     # the kernels of the main path, then the standalone probe, which the
@@ -2503,16 +2679,20 @@ def main() -> int:
     emit.EMIT_COUNTERS["py_blocks"] = 0
     now = format_rfc3339(start + 13 * 3600 * 10**9)
     report = []
-    phrase_rows = None
+    twin_rows = None
     t0_queries = time.perf_counter()
-    def drive(name: str, q: str, kernels: dict, host_handler: bool = True):
+    def drive(name: str, q: str, kernels: dict, host_handler: bool = True,
+              want: list | None = None):
         """One query through every check and timing of phase 3: the host
-        executor, a cold run (its launches checked) and a warm one held
-        against it, warm p50s, a profiled run and its answers; (report
-        row, result rows)."""
-        t0 = time.perf_counter()
-        want = run_query_collect(storage, tenants, q)
-        t_host = time.perf_counter() - t0
+        executor (unless `want` gives its rows already), a cold run (its
+        launches checked) and a warm one held against it, warm p50s, a
+        profiled run and its answers; (report row, result rows)."""
+        t_host = None
+        if want is None:
+            t0 = time.perf_counter()
+            want = run_query_collect(storage, tenants, q)
+            t_host = time.perf_counter() - t0
+        host_text = "shared" if t_host is None else f"{t_host:.3f} s"
 
         def warm_run(q=q):
             run_query(storage, tenants, q, lambda br: None, runner=runner)
@@ -2546,7 +2726,7 @@ def main() -> int:
                "profiled_wall_s": wall, "device_busy_s": busy,
                "device_idle_share": idle}
         log(f"query {name}: {len(got)} rows from {dev_parts} device parts, "
-            f"host executor {t_host:.3f} s (rows built), device cold "
+            f"host executor {host_text} (rows built), device cold "
             f"{t_cold:.3f} s (no rows built), warm p50 {p50:.4f} s without "
             f"rows built ({scanned / p50:,.0f} rows scanned/s), warm "
             f"{collect_s:.4f} s with rows built; profiled warm run "
@@ -2570,7 +2750,7 @@ def main() -> int:
             log(f"answer {name}: NDJSON export p50 "
                 f"{ans['ndjson_p50_s']:.4f} s for {ans['ndjson_bytes']} B, "
                 f"{ans['ndjson_rows_per_s']:,.0f} rows/s (dict rows p50 "
-                f"{collect_s:.4f} s, host executor {t_host:.3f} s); query "
+                f"{collect_s:.4f} s, host executor {host_text}); query "
                 f"at limit 1000 p50 {ans['api_query_p50_s']:.4f} s, "
                 f"{ans['api_query_parts']} device parts" + (
                     f"; with{FIELDS_CASE} p50 {ans['api_fields_p50_s']:.4f} "
@@ -2579,16 +2759,16 @@ def main() -> int:
         return row, got
 
     for name, q, kernels in queries(start):
-        row, got = drive(name, q, kernels)
+        # the generated text is lower case ASCII: i(ERROR) is `error` and
+        # i(RESP*) is `resp*`, so each any-case query is held against
+        # the host executor's rows of its twin, run just before it (a
+        # file part decodes its columns at every read: a second host
+        # run would cost ~10 s and check nothing more)
+        row, got = drive(name, q, kernels, want=twin_rows
+                         if name in ANYCASE_TWINS.values() else None)
+        twin_rows = got if name in ANYCASE_TWINS else None
         if name == "count_all" and got != [{"count(*)": str(nrows)}]:
             fail(f"count_all returned {got}, want {nrows}")
-        # the generated text is lower case ASCII: i(ERROR) is `error`
-        if name == "phrase":
-            phrase_rows = got
-        if name == "anycase":
-            if got != phrase_rows:
-                fail("anycase: i(ERROR) differs from the phrase error")
-            phrase_rows = None
         report.append(row)
         # a row query's ~1.4M result dicts, alive into the next query,
         # would make the collector's full passes land in its timings
@@ -2958,6 +3138,11 @@ def main() -> int:
         row for row in sw if row["kernel"] == "stats_values"]
     log(json.dumps({"sweep": sw + gate_sweep(rng, dev)}))
     log(f"sweeps: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    durable["force_merge"] = durable_force_merge(storage, tenants, runner,
+                                                 durable_before)
+    log(f"durable force merge and checks: "
+        f"{time.perf_counter() - t_phase:.1f} s")
     runner.close()
     storage.close()
     log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -2969,7 +3154,7 @@ def main() -> int:
         else "nvidia-smi: no output")
     print(json.dumps({"kernels": kern, "answers": [
         {k: r[k] for k in ANSWER_KEYS if k in r} for r in report],
-        "packed": packed, "ingest": ingest_figs}))
+        "packed": packed, "ingest": ingest_figs, "durable": durable}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,8 +23,8 @@ from ..storage.values_encoder import (VT_CONST, VT_DICT, VT_FLOAT64,
                                       VT_TIMESTAMP_ISO8601, VT_UINT8,
                                       VT_UINT16, VT_UINT32, VT_UINT64,
                                       _format_floats)
+from .block_search import _VIRTUAL, values_at
 
-_VIRTUAL = ("_time", "_stream", "_stream_id")
 _INT_VTYPES = (VT_UINT8, VT_UINT16, VT_UINT32, VT_UINT64, VT_INT64)
 
 # ---- emit columns ----
@@ -145,8 +145,7 @@ class BlockResult:
             elif name == "_time":
                 vals = format_rfc3339_many(self.timestamps_np())
             else:
-                full = self._bs.values(name)
-                vals = [full[i] for i in self._sel.tolist()]
+                vals = values_at(self._bs, name, self._sel)
             self._cols[name] = vals
         return vals
 

@@ -1,14 +1,17 @@
 """Per-block scan state: lazy column access for the filter tree.
 
 Wraps one (part, block) pair, caches lazily read timestamps, columns
-and decoded values, and is what filters AND themselves against.
+and decoded values (a file part decompresses a column at each read),
+and is what filters AND themselves against.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..storage.values_encoder import VT_DICT, VT_NAMES
+from ..storage.values_encoder import VT_DICT, VT_NAMES, decode_values
+
+_VIRTUAL = ("_time", "_stream", "_stream_id")
 
 
 class BlockSearch:
@@ -20,10 +23,14 @@ class BlockSearch:
         self.stream_id = part.block_stream_id(block_idx)
         self.stream_tags_str = part.block_tags(block_idx)
         self._consts: dict[str, str] | None = None
+        self._timestamps: np.ndarray | None = None
+        self._columns: dict = {}
         self._values: dict[str, list[str]] = {}
 
     def timestamps(self) -> np.ndarray:
-        return self.part.block_timestamps(self.block_idx)
+        if self._timestamps is None:
+            self._timestamps = self.part.block_timestamps(self.block_idx)
+        return self._timestamps
 
     def consts(self) -> dict[str, str]:
         if self._consts is None:
@@ -31,7 +38,10 @@ class BlockSearch:
         return self._consts
 
     def column(self, name: str):
-        return self.part.block_column(self.block_idx, name)
+        if name not in self._columns:
+            self._columns[name] = self.part.block_column(self.block_idx,
+                                                         name)
+        return self._columns[name]
 
     def column_meta(self, name: str) -> dict | None:
         """The column's header: type `t`, `min`/`max` of a numeric
@@ -79,6 +89,21 @@ class BlockSearch:
                 col.to_strings(self.nrows)
         self._values[name] = vals
         return vals
+
+
+def values_at(bs: BlockSearch, name: str, rows: np.ndarray) -> list[str]:
+    """bs.values(name) at the int indexes `rows`.  A stored column not
+    decoded yet decodes only those rows: a file part's column is read
+    anew by each query, so its other rows would be decoded for
+    nothing."""
+    if name not in _VIRTUAL and name not in bs.consts():
+        col = bs.column(name)
+        if col is None:
+            return [""] * len(rows)
+        if col._strings_cache is None:
+            return decode_values(col, bs.nrows, rows)
+    full = bs.values(name)
+    return [full[i] for i in rows.tolist()]
 
 
 def visit_values(bs: BlockSearch, name: str, bm: np.ndarray, pred) -> None:

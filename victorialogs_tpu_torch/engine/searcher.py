@@ -61,7 +61,7 @@ from ..logsql.parser import MAX_TS, MIN_TS, Query, parse_query
 from ..logsql.pipes import (PipeStats, PipeWhere, SinkProcessor,
                             compute_needed_fields)
 from ..obs import tracing
-from ..storage.log_rows import TenantID
+from ..storage.log_rows import TenantID, parse_stream_id
 from .block_result import BlockResult
 from .block_search import BlockSearch
 
@@ -158,7 +158,12 @@ def _allowed_streams(f, pt, tenants) -> set:
     keeps."""
     if isinstance(f, FilterStream):
         return f.resolve(pt, tenants)
-    return {sid for sid in pt.streams if sid.as_string() in f._set}
+    out = set()
+    for s in f._set:
+        sid = parse_stream_id(s)
+        if sid is not None and pt.has_stream_id(sid):
+            out.add(sid)
+    return out
 
 
 def _partition_parts(pt, q: Query, tenants: tuple, min_ts: int,

@@ -46,6 +46,19 @@ class BlockData:
     def max_ts(self) -> int:
         return int(self.timestamps[-1]) if self.num_rows else 0
 
+    def uncompressed_size(self) -> int:
+        """The bytes of the block's decoded columns and timestamps, as a
+        part's metadata counts them."""
+        sz = 8 * self.num_rows
+        for c in self.columns:
+            if c.vtype == VT_STRING:
+                sz += int(c.lengths.sum()) + 8 * self.num_rows
+            elif c.vtype == VT_DICT:
+                sz += self.num_rows
+            else:
+                sz += c.nums.itemsize * self.num_rows
+        return sz
+
     def get_column(self, name: str) -> EncodedColumn | None:
         for c in self.columns:
             if c.name == name:

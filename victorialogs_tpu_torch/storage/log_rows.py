@@ -33,6 +33,18 @@ class StreamID:
                f"{self.hi:016x}{self.lo:016x}"
 
 
+def parse_stream_id(s: str) -> StreamID | None:
+    """The StreamID whose as_string() is `s`, else None."""
+    if len(s) != 48:
+        return None
+    try:
+        sid = StreamID(TenantID(int(s[:8], 16), int(s[8:16], 16)),
+                       int(s[16:32], 16), int(s[32:], 16))
+    except ValueError:
+        return None
+    return sid if sid.as_string() == s else None
+
+
 def canonical_stream_tags(tags: list[tuple[str, str]]) -> str:
     """Canonical `{k1="v1",k2="v2"}` rendering, sorted by label name."""
     inner = ",".join(f'{k}={_quote(v)}' for k, v in sorted(tags))

@@ -1,113 +1,92 @@
-"""Storage: rows split by UTC day into partitions of in-memory parts.
+"""Storage: rows split by UTC day into partitions, in memory or on disk.
 
-Each partition pairs a stream index (stream id -> canonical tags, the
-`_stream:{...}` resolution source) with the list of parts its flushes
-minted.  Every batch added (rows or columns) is built into blocks at
-once and buffered as a part of its own, which queries see at once
-(`snapshot_parts` lists the buffered parts first, then the flushed
-ones); a flush merges the buffered block lists into ONE part per
-partition (storage/merge.py).  `debug_flush` flushes every partition,
-and an add flushes its partition once more than MAX_INMEMORY_PARTS
-batches wait.  There are no background threads, so `close()` only
-drops state.
+`Storage(path)` keeps each day's partition under
+`path/partitions/YYYYMMDD` (storage/partition.py: a stream index and a
+datadb of file parts) and reopens them when constructed; `.tmp`
+leftovers there are removed.  `Storage()` (no path) keeps every part in
+host memory and loses it at `close()`: each batch added is an in-memory
+part that queries see at once, and a flush merges a partition's waiting
+batches into one part.  `debug_flush` flushes every partition, and an
+add flushes its partition once more than MAX_INMEMORY_PARTS batches
+wait (a durable partition also once its oldest waiting batch is
+`flush_interval` seconds old).
+
+There are no background threads: retention (`drop_expired_partitions`)
+and the disk limit (`enforce_max_disk_usage`) are methods the owner
+calls, and a durable partition's merges run inside the flush that makes
+them due.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
+import shutil
 import time
 
 import numpy as np
 
 from ..device import resolve_device
-from .block_build import build_log_rows_blocks
+from .datadb import MAX_INMEMORY_PARTS
 from .log_rows import LogRows
-from .merge import merge_block_streams
-from .part import Part
-from .stream_filter import parse_stream_tags
+from .part import fsync_dir
+from .partition import Partition
 
 NSECS_PER_DAY = 86400 * 1_000_000_000
-MAX_INMEMORY_PARTS = 8       # buffered batches a partition holds unflushed
+PARTITIONS_DIRNAME = "partitions"
 
 
 def day_from_ts(ts_ns: int) -> int:
     return ts_ns // NSECS_PER_DAY
 
 
-class Partition:
-    """One UTC day: stream index + flushed parts + one in-memory part
-    for each batch added since the last flush."""
+def day_dir_name(day: int) -> str:
+    d = datetime.datetime.fromtimestamp(day * 86400, datetime.timezone.utc)
+    return d.strftime("%Y%m%d")
 
-    def __init__(self, day: int):
-        self.day = day
-        self.streams: dict = {}            # StreamID -> canonical tags
-        self.parts: list[Part] = []
-        self._pending: list[Part] = []     # one part a batch
 
-    def must_add_rows(self, lr: LogRows, idxs=None) -> None:
-        """Build rows `idxs` of `lr` (all of them when None)."""
-        if idxs is None:
-            for sid, tags in lr.streams():
-                self.streams.setdefault(sid, tags)
-        else:
-            sub = LogRows()
-            for i in idxs:
-                sid = lr.stream_ids[i]
-                self.streams.setdefault(sid, lr.stream_tags_str[i])
-                sub.timestamps.append(lr.timestamps[i])
-                sub.rows.append(lr.rows[i])
-                sub.stream_ids.append(sid)
-                sub.stream_tags_str.append(lr.stream_tags_str[i])
-            lr = sub
-        self._add_blocks(build_log_rows_blocks(lr))
-
-    def must_add_columns(self, lc) -> None:
-        """Build a LogColumns batch of this day."""
-        for sid, tags in lc.unique_streams():
-            self.streams.setdefault(sid, tags)
-        self._add_blocks(lc.build_blocks())
-
-    def _add_blocks(self, blocks: list) -> None:
-        if blocks:
-            self._pending.append(Part(blocks))
-            if len(self._pending) > MAX_INMEMORY_PARTS:
-                self.flush()
-
-    def flush(self) -> None:
-        """Merge the buffered batches into one part (a lone batch's part
-        becomes the flushed part as it is)."""
-        pending, self._pending = self._pending, []
-        if not pending:
-            return
-        self.parts.append(pending[0] if len(pending) == 1 else Part(
-            list(merge_block_streams([p.blocks for p in pending]))))
-
-    def search_stream_ids(self, tenants, sf) -> set:
-        """Stream ids of `tenants` whose tags match the stream filter
-        (absent labels read as the empty string)."""
-        ts = set(tenants)
-        return {sid for sid, tags in self.streams.items()
-                if sid.tenant in ts and sf.matches(parse_stream_tags(tags))}
-
-    def snapshot_parts(self) -> list[Part]:
-        """The parts a query walks: the unflushed batches' in-memory
-        parts, oldest first, then the flushed parts."""
-        return self._pending + self.parts
+def day_from_dir_name(name: str) -> int:
+    d = datetime.datetime.strptime(name, "%Y%m%d") \
+        .replace(tzinfo=datetime.timezone.utc)
+    return int(d.timestamp()) // 86400
 
 
 class Storage:
-    """Parts live in host memory; a TorchBatchRunner stages them on its
-    own device.  `device` is only checked: "cuda" (the default) raises
-    when CUDA is missing, so running without a card is an explicit
-    device="cpu"."""
+    """A TorchBatchRunner stages the parts on its own device.  `device`
+    is only checked: "cuda" (the default) raises when CUDA is missing,
+    so running without a card is an explicit device="cpu"."""
 
-    def __init__(self, retention_days: float = 7.0,
-                 future_retention_days: float = 2.0, device="cuda"):
+    def __init__(self, path: str | None = None, retention_days: float = 7.0,
+                 flush_interval: float = 5.0,
+                 future_retention_days: float = 2.0,
+                 max_disk_usage_bytes: int = 0, device="cuda"):
         resolve_device(device)
+        self.path = path
         self.retention_days = retention_days
         self.future_retention_days = future_retention_days
+        self.flush_interval = flush_interval
+        self.max_disk_usage_bytes = max_disk_usage_bytes
         self.partitions: dict[int, Partition] = {}
         self.rows_dropped_too_old = 0
         self.rows_dropped_too_new = 0
+        if path is None:
+            return
+        pdir = self._pdir()
+        os.makedirs(pdir, exist_ok=True)
+        for entry in sorted(os.listdir(pdir)):
+            full = os.path.join(pdir, entry)
+            if entry.endswith(".tmp"):
+                shutil.rmtree(full)
+                continue
+            try:
+                day = day_from_dir_name(entry)
+            except ValueError:
+                continue
+            self.partitions[day] = Partition(
+                day, full, flush_interval, MAX_INMEMORY_PARTS)
+
+    def _pdir(self) -> str:
+        return os.path.join(self.path, PARTITIONS_DIRNAME)
 
     def _retention(self) -> tuple[int, int]:
         now_ns = time.time_ns()
@@ -117,8 +96,17 @@ class Storage:
     def _partition(self, day: int) -> Partition:
         pt = self.partitions.get(day)
         if pt is None:
-            pt = self.partitions[day] = Partition(day)
+            path = None
+            if self.path is not None:
+                path = os.path.join(self._pdir(), day_dir_name(day))
+            pt = Partition(day, path, self.flush_interval,
+                           MAX_INMEMORY_PARTS)
+            if path is not None:
+                fsync_dir(self._pdir())
+            self.partitions[day] = pt
         return pt
+
+    # ---- ingestion ----
 
     def must_add_rows(self, lr: LogRows) -> None:
         """Split a batch by UTC day; rows outside the retention window
@@ -148,14 +136,91 @@ class Storage:
         for day, sub in by_day.items():
             self._partition(day).must_add_columns(sub)
 
+    # ---- queries ----
+
     def select_partitions(self, min_ts: int, max_ts: int) -> list:
         lo, hi = day_from_ts(min_ts), day_from_ts(max_ts)
         return [p for d, p in sorted(self.partitions.items())
                 if lo <= d <= hi]
 
+    # ---- maintenance ----
+
     def debug_flush(self) -> None:
         for p in self.partitions.values():
             p.flush()
 
+    def must_force_merge(self, partition_prefix: str = "") -> None:
+        """Merge each partition whose YYYYMMDD name starts with the
+        prefix into one part."""
+        for d, p in list(self.partitions.items()):
+            if day_dir_name(d).startswith(partition_prefix):
+                p.force_merge()
+
+    def _drop(self, day: int) -> None:
+        p = self.partitions.pop(day)
+        p.close()
+        if p.path is not None:
+            shutil.rmtree(p.path)
+            fsync_dir(self._pdir())
+
+    def drop_expired_partitions(self, now_ns: int | None = None) -> list:
+        """Drop the partitions of days wholly older than the retention
+        window; their days."""
+        if now_ns is None:
+            now_ns = time.time_ns()
+        min_day = day_from_ts(now_ns - int(self.retention_days
+                                           * NSECS_PER_DAY))
+        dropped = [d for d in sorted(self.partitions) if d < min_day]
+        for day in dropped:
+            self._drop(day)
+        return dropped
+
+    def disk_usage_bytes(self) -> int:
+        total = 0
+        for root, _dirs, files in os.walk(self.path):
+            for f in files:
+                total += os.path.getsize(os.path.join(root, f))
+        return total
+
+    def enforce_max_disk_usage(self) -> list:
+        """While the store's directory holds more than
+        max_disk_usage_bytes, drop its oldest partition (never the
+        newest); the days dropped."""
+        if self.path is None or self.max_disk_usage_bytes <= 0:
+            return []
+        dropped: list[int] = []
+        while len(self.partitions) > 1 and \
+                self.disk_usage_bytes() > self.max_disk_usage_bytes:
+            day = min(self.partitions)
+            self._drop(day)
+            dropped.append(day)
+        return dropped
+
+    def update_stats(self) -> dict:
+        agg = {
+            "partitions": len(self.partitions), "streams": 0,
+            "inmemory_rows": 0, "file_rows": 0, "small_rows": 0,
+            "big_rows": 0, "inmemory_parts": 0, "small_parts": 0,
+            "big_parts": 0, "compressed_size": 0, "uncompressed_size": 0,
+            "pending_merges": 0, "merges_done": 0,
+            "flush_age_seconds": 0.0,
+            "rows_dropped_too_old": self.rows_dropped_too_old,
+            "rows_dropped_too_new": self.rows_dropped_too_new,
+        }
+        for p in self.partitions.values():
+            s = p.stats()
+            for k in ("streams", "inmemory_rows", "file_rows",
+                      "small_rows", "big_rows", "inmemory_parts",
+                      "small_parts", "big_parts", "compressed_size",
+                      "uncompressed_size", "pending_merges", "merges_done"):
+                agg[k] += s[k]
+            agg["flush_age_seconds"] = max(agg["flush_age_seconds"],
+                                           s["flush_age_seconds"])
+        return agg
+
     def close(self) -> None:
+        """Flush and close every durable partition; a memory-only store
+        drops its state."""
+        for p in self.partitions.values():
+            p.close()
         self.partitions.clear()

@@ -313,27 +313,33 @@ def format_iso8601(ns: int, frac_w: int) -> str:
     return base + "Z"
 
 
-def decode_values(col: EncodedColumn, nrows: int) -> list[str]:
-    """Decode a column back to its original strings."""
+def decode_values(col: EncodedColumn, nrows: int,
+                  rows: np.ndarray | None = None) -> list[str]:
+    """Decode a column back to its original strings: all `nrows` rows,
+    or only the rows at the int indexes `rows`."""
+    def pick(a):
+        return a if rows is None else a[rows]
+
     vt = col.vtype
     if vt == VT_CONST:
-        return [col.const_value] * nrows  # type: ignore[list-item]
+        return [col.const_value] * (nrows if rows is None else len(rows))
     if vt == VT_DICT:
         dv = col.dict_values
-        return [dv[i] for i in col.ids.tolist()]  # type: ignore[index]
+        return [dv[i] for i in pick(col.ids).tolist()]  # type: ignore[index]
     if vt in (VT_UINT8, VT_UINT16, VT_UINT32, VT_UINT64, VT_INT64):
-        return col.nums.astype("U20").tolist()  # type: ignore[union-attr]
+        return pick(col.nums).astype("U20").tolist()  # type: ignore[union-attr]
     if vt == VT_FLOAT64:
-        return _format_floats(col.nums).tolist()  # type: ignore[arg-type]
+        return _format_floats(pick(col.nums)).tolist()  # type: ignore[arg-type]
     if vt == VT_IPV4:
-        n = col.nums
+        n = pick(col.nums)
         return [f"{(v >> 24) & 255}.{(v >> 16) & 255}.{(v >> 8) & 255}.{v & 255}"
                 for v in n.tolist()]
     if vt == VT_TIMESTAMP_ISO8601:
-        return [format_iso8601(v, col.iso_frac_w) for v in col.nums.tolist()]
+        return [format_iso8601(v, col.iso_frac_w)
+                for v in pick(col.nums).tolist()]
     # VT_STRING
     buf = col.arena.tobytes()
-    offs = col.offsets.tolist()
-    lens = col.lengths.tolist()
+    offs = pick(col.offsets).tolist()
+    lens = pick(col.lengths).tolist()
     return [buf[o:o + l].decode("utf-8", "replace")
             for o, l in zip(offs, lens)]
