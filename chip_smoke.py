@@ -38,7 +38,7 @@ Phases, each fatal on failure:
    multibyte mask (`check_fold`).
 3. main path: ingest 2M generated rows as a user sends them, through
    /insert/jsonline (`handle_jsonline`, the generator's JSON-lines
-   bodies) into a durable Storage in a temporary directory (removed at
+   bodies, made in spawned processes while phases 1 and 2 run) into a durable Storage in a temporary directory (removed at
    exit, also on failure) with 2 flushes, which must give 2 parts of 1M
    rows in 64 blocks each on disk with no chunk of the bodies parsed in
    Python (`INGEST_COUNTERS["py_chunks"]` 0), a line a flush with its
@@ -47,7 +47,9 @@ Phases, each fatal on failure:
    store and reopen it from its directory (`durable_reopen`): `count()`
    must equal the rows the handler acknowledged and every answer must
    be the same, and the cold first query (a fresh runner: files read,
-   decompressed, staged) is timed beside the next; every query below
+   decompressed, staged) is timed beside the next, traced: its staged
+   entries and bytes, bloom probes and kills and span totals are
+   printed (`cold_counters`); every query below
    runs over the reopened store; ingest ROUTE_ROWS generator rows
    by rows, by /insert/jsonline and by Elasticsearch _bulk
    (`handle_elasticsearch_bulk`) into one flush each, whose three parts
@@ -180,13 +182,31 @@ Phases, each fatal on failure:
    (`sweep`), and
    the gated scan behind gates of 64, 1,000 and 1,100 blocks with 6 and
    30 probes a block (`gate_sweep`), each held against its plain version
-   and timed beside its bound; then `must_force_merge` of the main
-   store (2 parts into one of 2M rows), after which `count()`, the
-   hourly counts and the `error` rows must equal their answers before
-   the close (`durable_force_merge`); the card's name and power limit,
+   and timed beside its bound; then the result cache phase on the main
+   store (`result_cache_path`, VL_RESULT_CACHE=1 for its runs): stats,
+   value stats, rows and top-k queries over a `_time` window that
+   covers both parts run with the cache off, cold and warm, all three
+   answers equal, the warm run replaying each part (no unit submitted,
+   no kernel launched) and the stats queries' warm p50 and device-busy
+   time printed with the cache on beside off; a `_stream:` query and
+   its stream lookup timed with the stream index's filter cache warm
+   beside cleared (`filter_cache_timing`, the result cache off); a
+   window that cuts the second part replays the first alone and stores
+   nothing for the second; then `must_force_merge` of the main store (2 parts into one
+   of 2M rows), after which `count()`, the hourly counts and the
+   `error` rows must equal their answers before the close
+   (`durable_force_merge`), the result cache must balance with no
+   entry of the merged parts left, and the next run misses on the
+   merged part alone; then a batch of RC_BATCH_ROWS rows is added and
+   the next run recomputes its in-memory part alone; the card's name
+   and power limit,
    then a JSON line of kernel figures, each query's answer figures
-   (`answers`), each route's ingest figures (`ingest`) and the durable
-   store's (`durable`), and a last JSON line with the device.
+   (`answers`), each route's ingest figures (`ingest`), the durable
+   store's (`durable`) and the result cache phase's (`result_cache`),
+   and a last JSON line with the device.
+
+VL_RESULT_CACHE is 0 for every phase but the result cache's, so every
+other run recomputes every part and measures the kernels.
 
 Every time says where it came from: the profiler's device time, or CUDA
 events around back-to-back calls (which also count the host launch path)
@@ -201,6 +221,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -212,6 +233,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ROWS = 2_000_000              # main-path rows, ingested with 2 flushes
 FLUSHES = 2                   # parts of the main store, 1M rows each
+MAIN_SEED = 11                # generator seed of the main store's rows
 WARM_RUNS = 5                 # timed warm runs per query, no rows built
 FIELDS_CASE = " | fields _time, lvl, dur | limit 5 | offset 2"
 # per-query figures of the last-but-one line beside the kernels
@@ -1520,13 +1542,14 @@ def store_by_route(route: str, batches: list, path: str | None = None):
     return storage, fig
 
 
-def ingest_route(route: str, total: int, flushes: int, seed: int,
-                 path: str | None = None):
-    """ingest()'s store (the same generator rows for the same seed),
-    each flush's rows sent by `route` (store_by_route; durable under
-    `path`).  The flushes' bodies are made in parallel, one process a
-    flush (set-up, timed apart as `setup_s`).  (storage, start, rows,
-    figures)."""
+def start_bodies(route: str, total: int, flushes: int, seed: int):
+    """Start making ingest_route's bodies (the same generator rows for
+    the same seed), one spawned process a flush, and return without
+    waiting: the main store's bodies are made while the kernels build
+    and are checked.  A call of the returned function waits for them:
+    (start, batches, seconds from the start until they were made,
+    seconds it waited).  The pool is shut down there (or, on a failure
+    before, at exit, after its workers end)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
@@ -1537,19 +1560,46 @@ def ingest_route(route: str, total: int, flushes: int, seed: int,
     args = [(route, per, seed + k, start + k * span // flushes,
              span // flushes) for k in range(flushes)]
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(
-            max_workers=flushes,
-            mp_context=multiprocessing.get_context("spawn")) as ex:
-        batches = list(ex.map(flush_body, *zip(*args)))
-    setup_s = time.perf_counter() - t0
+    ex = ProcessPoolExecutor(max_workers=flushes,
+                             mp_context=multiprocessing.get_context("spawn"))
+    futs = [ex.submit(flush_body, *a) for a in args]
+    made = [0.0]
+
+    def note(_f) -> None:
+        made[0] = max(made[0], time.perf_counter() - t0)
+
+    for f in futs:
+        f.add_done_callback(note)
+
+    def wait() -> tuple:
+        t1 = time.perf_counter()
+        batches = [f.result() for f in futs]
+        waited = time.perf_counter() - t1
+        ex.shutdown()
+        return start, batches, made[0], waited
+    return wait
+
+
+def ingest_route(route: str, total: int, flushes: int, seed: int,
+                 path: str | None = None, bodies=None):
+    """ingest()'s store, each flush's rows sent by `route`
+    (store_by_route; durable under `path`).  The bodies come from
+    `bodies` (start_bodies' waiting function, started earlier), else
+    are made now (set-up, timed apart as `setup_s`, the wait for them
+    as `setup_wait_s`).  (storage, start, rows, figures)."""
+    if bodies is None:
+        bodies = start_bodies(route, total, flushes, seed)
+    start, batches, setup_s, waited = bodies()
     storage, fig = store_by_route(route, batches, path)
     fig["setup_s"] = setup_s
-    return storage, start, per * flushes, fig
+    fig["setup_wait_s"] = waited
+    return storage, start, (total // flushes) * flushes, fig
 
 
 def log_ingest(fig: dict, counters: dict) -> None:
-    setup = (f"rows and body made in {fig['setup_s']:.2f} s; "
-             if "setup_s" in fig else "")
+    setup = (f"rows and body made in {fig['setup_s']:.2f} s (waited "
+             f"{fig['setup_wait_s']:.2f} s for them); "
+             if "setup_wait_s" in fig else "")
     log(f"ingest by {fig['route']}: {fig['rows']} rows, body "
         f"{fig['body_bytes']} B; {setup}handler {fig['handler_s']:.2f} s, "
         f"flush {fig['flush_s']:.2f} s: {fig['rows_per_s']:.0f} rows/s "
@@ -1675,6 +1725,7 @@ def durable_reopen(storage, path: str, tenants, rows_sent: int):
     import torch
     from victorialogs_tpu_torch.engine.searcher import run_query
     from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
+    from victorialogs_tpu_torch.obs import tracing
     from victorialogs_tpu_torch.storage.storage import Storage
     runner = TorchBatchRunner(device="cuda")
     t0 = time.perf_counter()
@@ -1690,10 +1741,13 @@ def durable_reopen(storage, path: str, tenants, rows_sent: int):
     reopen_s = time.perf_counter() - t0
     reopened = storage.update_stats()
     runner = TorchBatchRunner(device="cuda")
+    root = tracing.make_root("query", query=PHRASE)
     t0 = time.perf_counter()
-    run_query(storage, tenants, PHRASE, lambda br: None, runner=runner)
-    torch.cuda.synchronize()
+    with tracing.activate(root):
+        run_query(storage, tenants, PHRASE, lambda br: None, runner=runner)
+        torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
+    cold_trace = cold_counters(root)
     t0 = time.perf_counter()
     run_query(storage, tenants, PHRASE, lambda br: None, runner=runner)
     torch.cuda.synchronize()
@@ -1718,6 +1772,7 @@ def durable_reopen(storage, path: str, tenants, rows_sent: int):
            "uncompressed_bytes": stats["uncompressed_size"],
            "answers_s": answers_s, "close_s": close_s,
            "reopen_s": reopen_s, "cold_first_query_s": cold_s,
+           "cold_first_query_trace": cold_trace,
            "second_query_s": warm_s, "answers_held": len(before)}
     log(f"durable: closed in {close_s:.3f} s, reopened in {reopen_s:.3f} s "
         f"({reopened['small_parts']} parts, {reopened['file_rows']} rows, "
@@ -1727,7 +1782,30 @@ def durable_reopen(storage, path: str, tenants, rows_sent: int):
         f"(taken in {answers_s:.2f} s); cold first query {PHRASE!r} "
         f"{cold_s:.4f} s (files read, decompressed, staged; pages warm), "
         f"the second {warm_s:.4f} s")
+    log(f"durable: the cold first query's trace (traced run): "
+        f"{json.dumps(cold_trace)}")
     return storage, before, fig, runner
+
+
+COLD_COUNTERS = ("staged_entries", "staged_bytes", "blocks_probed_bloom",
+                 "blocks_killed_bloom", "blocks_out", "rows_downloaded",
+                 "host_sync_wait_s")
+
+
+def cold_counters(root) -> dict:
+    """A traced query's counters summed over its spans, and each span
+    name's count and total milliseconds (`flatten`)."""
+    out = {k: 0 for k in COLD_COUNTERS}
+
+    def walk(sp):
+        for k in COLD_COUNTERS:
+            out[k] += sp.attrs.get(k, 0)
+        for c in sp.children:
+            walk(c)
+
+    walk(root)
+    out["spans"] = root.flatten()
+    return out
 
 
 def durable_force_merge(storage, tenants, runner, before: dict) -> dict:
@@ -1753,6 +1831,309 @@ def durable_force_merge(storage, tenants, runner, before: dict) -> dict:
         f"{parts[0].num_rows} rows in {parts[0].num_blocks} blocks, "
         f"{merge_s:.2f} s, {stats['compressed_size']} B compressed; "
         f"count(), hourly counts and {after[PHRASE][0]} phrase rows equal")
+    return fig
+
+
+RC_BATCH_ROWS = 10_000        # rows of the batch the result cache phase adds
+RC_TIMED_RUNS = 3             # timed runs a query, the cache on and off
+
+
+def rc_queries(start: int) -> tuple:
+    """The result cache phase's queries over `_time` windows of the main
+    store (2 parts: [start, start + 6h) and [start + 6h, start + 12h)):
+    ({name: LogsQL} over the whole day, which covers both parts; the
+    hourly counts over [start, start + 9h), which covers the first part
+    and cuts the second; a `_stream:` count over the whole day, which
+    times the stream index's filter cache)."""
+    from victorialogs_tpu_torch.logsql.duration import format_rfc3339
+    hour = 3600 * 10**9
+    day = (f"_time:[{format_rfc3339(start)}, "
+           f"{format_rfc3339(start + 24 * hour)})")
+    cut = (f"_time:[{format_rfc3339(start)}, "
+           f"{format_rfc3339(start + 9 * hour)})")
+    return ({"stats": f"{day} error | stats by (_time:1h) count()",
+             "value_stats": f"{day} error | stats by (lvl) count(), "
+                            f"sum(dur), avg(dur), min(dur), max(dur)",
+             "rows": f"{day} quota timeout | fields _time, dur",
+             "topk": f"{day} error | sort by (dur) desc limit 10"},
+            f"{cut} error | stats by (_time:1h) count()",
+            f'{day} _stream:{{app="app-3"}} timeout | stats count()')
+
+
+def result_cache_path(storage, tenants, runner, wrappers, timed, start,
+                      durable_before) -> dict:
+    """The per-part result cache on the reopened main store, with
+    VL_RESULT_CACHE=1 for its runs and 0 again after it:
+
+    - each of `rc_queries` runs with the cache off, cold and warm: the
+      three answers equal; the cold run launches kernels and replays no
+      part, the warm one replays each sealed part (one result-cache unit
+      a part), submits no unit and launches nothing; the stats query's
+      warm p50 and device-busy time with the cache on beside off;
+    - the stream index's filter cache (the result cache off): a
+      `_stream:` query's p50 and its stream lookup with the filter cache
+      warm beside cleared before each call, the answers equal;
+    - a `_time` window that cuts the second part: the first part
+      replays, the second is recomputed and nothing is stored for it;
+    - `must_force_merge` (durable_force_merge, the cache off) and a
+      collection: the store balances and holds no entry of the merged
+      parts; the next run misses on the merged part alone and equals
+      the answer with the cache off;
+    - one batch of RC_BATCH_ROWS rows added (an in-memory part): the
+      next run replays the merged part, recomputes the new one alone
+      (one unit, its launches half of the cold run's over the two parts)
+      and equals the answer with the cache off.
+    Figures for the last-but-one line."""
+    import gc
+    import weakref
+    import torch
+    from victorialogs_tpu_torch.cli.vlogsgenerator import generate
+    from victorialogs_tpu_torch.engine import standing
+    from victorialogs_tpu_torch.engine.searcher import (run_query,
+                                                        run_query_collect)
+    from victorialogs_tpu_torch.storage.log_rows import LogRows
+    t_phase = time.perf_counter()
+    counters = runner.stats_counters
+    qs, cut_q, stream_q = rc_queries(start)
+
+    def run(q: str, cache: bool):
+        """(answer, launches by kernel, runner counter moves) of one run
+        with the cache on or off."""
+        os.environ["VL_RESULT_CACHE"] = "1" if cache else "0"
+        c0 = dict(counters)
+        l0 = {w.__name__: w.launches for w in wrappers}
+        s0 = standing.cache_stats()
+        got = run_query_collect(storage, tenants, q, runner=runner)
+        torch.cuda.synchronize()
+        s1 = standing.cache_stats()
+        return got, {w.__name__: w.launches - l0[w.__name__]
+                     for w in wrappers}, dict(
+            {k: counters[k] - c0[k] for k in counters},
+            **{f"cache_{k}": s1[k] - s0[k]
+               for k in ("hits", "misses", "stores")})
+
+    def held(what: str, got, want) -> None:
+        if got != want:
+            fail(f"result cache: {what}: the answer differs from the "
+                 f"answer with the cache off ({len(got)} vs {len(want)} "
+                 f"rows)")
+
+    standing.reset_for_tests()
+    sealed = [weakref.ref(p) for pt in storage.partitions.values()
+              for p in pt.snapshot_parts()]
+    nsealed = len(sealed)
+    fig = {"sealed_parts": nsealed, "queries": {}, "steps_s": {}}
+    cold_launches = None
+    t_step = time.perf_counter()
+
+    def step(name: str) -> None:
+        nonlocal t_step
+        now = time.perf_counter()
+        fig["steps_s"][name] = now - t_step
+        t_step = now
+
+    for name, q in qs.items():
+        off, _l, _m = run(q, False)
+        cold, lc, mc = run(q, True)
+        warm, lw, mw = run(q, True)
+        held(f"{name} cold", cold, off)
+        held(f"{name} warm", warm, off)
+        if mc["result_cache_units"] or not sum(lc.values()) or \
+                mc["cache_stores"] != nsealed:
+            fail(f"result cache: {name} cold run: {mc}, launches {lc}")
+        if sum(lw.values()) or mw["units"] or mw["device_parts"] or \
+                mw["result_cache_units"] != nsealed or \
+                mw["cache_hits"] != nsealed:
+            fail(f"result cache: {name} warm run: {mw}, launches {lw}")
+        if name == "stats":
+            cold_launches = lc
+        row = {"rows_out": len(off), "cold_launches": lc,
+               "warm_launches": lw, "cold": mc, "warm": mw}
+        if name in ("stats", "value_stats"):
+            for tag, on in (("on", True), ("off", False)):
+                os.environ["VL_RESULT_CACHE"] = "1" if on else "0"
+
+                def fn(q=q):
+                    run_query(storage, tenants, q, lambda br: None,
+                              runner=runner)
+
+                row[f"warm_p50_s_cache_{tag}"] = timed(fn, RC_TIMED_RUNS)
+                wall, busy = busy_share(fn)
+                ops = device_ops(fn)
+                if busy is None and ops:
+                    # the profiler has recorded no device time in a
+                    # profile whose next one saw kernels: profile again
+                    log(f"result cache {name}: the busy profile of the "
+                        f"cache {tag} run recorded no device time, the "
+                        f"next one {len(ops)} ops; profiled again")
+                    wall, busy = busy_share(fn)
+                    row[f"busy_reprofiled_cache_{tag}"] = True
+                row[f"profiled_wall_s_cache_{tag}"] = wall
+                row[f"device_busy_s_cache_{tag}"] = busy
+                row[f"device_ops_cache_{tag}"] = ops
+        fig["queries"][name] = row
+        timing = "" if "warm_p50_s_cache_on" not in row else (
+            f"; warm p50 {row['warm_p50_s_cache_on']:.6f} s with the cache "
+            f"on, {row['warm_p50_s_cache_off']:.6f} s off; device busy "
+            f"{row['device_busy_s_cache_on']} s on, "
+            f"{row['device_busy_s_cache_off']} s off (profiled runs; None: "
+            f"no device time recorded); device ops on "
+            f"{row['device_ops_cache_on']}, off {row['device_ops_cache_off']}")
+        log(f"result cache {name}: {len(off)} rows, equal off, cold and "
+            f"warm; cold launches {lc}, warm {lw} with "
+            f"{mw['result_cache_units']} result-cache units of {nsealed} "
+            f"parts{timing}")
+
+    step("queries")
+    fig["filter_cache"] = filter_cache_timing(storage, tenants, runner,
+                                              stream_q)
+    step("filter_cache")
+    # a window that cuts the second part
+    off, _l, _m = run(cut_q, False)
+    got, lcut, mcut = run(cut_q, True)
+    held("cut window", got, off)
+    if (mcut["cache_hits"], mcut["cache_misses"], mcut["cache_stores"],
+            mcut["result_cache_units"], mcut["units"]) != (1, 1, 0, 1, 1):
+        fail(f"result cache: the cut window: {mcut}, launches {lcut}")
+    fig["cut_window"] = {"rows_out": len(off), "launches": lcut,
+                         "moves": mcut}
+    log(f"result cache: the window cutting the second part replays the "
+        f"first and recomputes the second ({mcut}), nothing stored")
+
+    step("cut_window")
+    # the merge, with the cache off; the merged-away parts must go
+    entries = standing.cache_stats()["entries"]
+    os.environ["VL_RESULT_CACHE"] = "0"
+    fig["force_merge"] = durable_force_merge(storage, tenants, runner,
+                                             durable_before)
+    step("force_merge_and_checks")
+    gc.collect()
+    ok, detail = standing.cache_check_balanced()
+    alive = sum(r() is not None for r in sealed)
+    after = standing.cache_stats()["entries"]
+    if not ok or alive or after:
+        held_by = [type(r).__name__ for ref in sealed if ref() is not None
+                   for r in gc.get_referrers(ref())]
+        fail(f"result cache after the merge: balanced {ok} ({detail}), "
+             f"{alive} merged-away parts alive (held by {held_by}), "
+             f"{after} entries")
+    q = qs["stats"]
+    off, _l, _m = run(q, False)
+    got, lm, mm = run(q, True)
+    held("after the merge", got, off)
+    if (mm["cache_misses"], mm["cache_hits"], mm["result_cache_units"],
+            mm["cache_stores"]) != (1, 0, 0, 1):
+        fail(f"result cache: the run after the merge: {mm}")
+    fig["after_merge"] = {"entries_before": entries, "entries_after": after,
+                          "balanced": detail, "moves": mm}
+    log(f"result cache: {entries} entries before the merge, {after} after "
+        f"it and a collection ({detail}); the next run misses on the "
+        f"merged part ({mm}) and equals the answer with the cache off")
+
+    step("after_merge")
+    # a new batch: an in-memory part, recomputed alone
+    lr = LogRows(stream_fields=INGEST_STREAM_FIELDS)
+    for ts, fields in generate(RC_BATCH_ROWS, 17, start + 13 * 3600 * 10**9,
+                               3600 * 10**9):
+        lr.add(tenants[0], ts, fields)
+    storage.must_add_rows(lr)
+    nparts = sum(len(pt.snapshot_parts())
+                 for pt in storage.partitions.values())
+    off, _l, _m = run(q, False)
+    got, lh, mh = run(q, True)
+    held("the new batch", got, off)
+    if nparts != 2 or (mh["result_cache_units"], mh["units"],
+                       mh["cache_hits"], mh["cache_misses"]) != \
+            (1, 1, 1, 1) or \
+            {k: 2 * v for k, v in lh.items()} != cold_launches:
+        fail(f"result cache: the new batch ({nparts} parts): {mh}, "
+             f"launches {lh} against {cold_launches} for {nsealed} parts")
+    fig["new_batch"] = {"rows": RC_BATCH_ROWS, "launches": lh, "moves": mh}
+    log(f"result cache: a batch of {RC_BATCH_ROWS} rows added; the next "
+        f"run replays the merged part and recomputes the new one alone "
+        f"(launches {lh}, {mh})")
+    step("new_batch")
+    os.environ["VL_RESULT_CACHE"] = "0"
+    ok, detail = standing.cache_check_balanced()
+    if not ok:
+        fail(f"result cache: unbalanced at the end ({detail})")
+    fig["store"] = standing.cache_stats()
+    fig["phase_s"] = time.perf_counter() - t_phase
+    log(f"result cache phase: {fig['steps_s']} s by step; store "
+        f"{fig['store']}")
+    return fig
+
+
+RC_LOOKUPS = 200              # timed stream lookups, the filter cache warm
+                              # and cleared
+
+
+def filter_cache_timing(storage, tenants, runner, q: str) -> dict:
+    """The stream index's two-generation filter cache, with the result
+    cache off: the p50 of the `_stream:` query `q` and the mean time of
+    its stream lookup (Partition.search_stream_ids), each with the
+    filter cache warm beside cleared before every call (the runs of the
+    two alternate); the answers and the lookups' stream ids equal."""
+    import torch
+    from victorialogs_tpu_torch.engine.searcher import (run_query,
+                                                        run_query_collect)
+    from victorialogs_tpu_torch.logsql.filters import FilterStream
+    from victorialogs_tpu_torch.logsql.parser import parse_query
+    os.environ["VL_RESULT_CACHE"] = "0"
+    pts = list(storage.partitions.values())
+    sf = [f for f in parse_query(q).filter.filters
+          if isinstance(f, FilterStream)][0].stream_filter
+
+    def clear() -> None:
+        for pt in pts:
+            pt.idb._filter_cache.clear()
+
+    def query() -> None:
+        run_query(storage, tenants, q, lambda br: None, runner=runner)
+
+    def cleared_query() -> None:
+        clear()
+        query()
+
+    def lookups(cleared: bool) -> tuple:
+        ids, t = None, 0.0
+        for _ in range(RC_LOOKUPS):
+            if cleared:
+                clear()
+            t0 = time.perf_counter()
+            ids = [pt.search_stream_ids(tenants, sf) for pt in pts]
+            t += time.perf_counter() - t0
+        return ids, t / RC_LOOKUPS
+
+    want = run_query_collect(storage, tenants, q, runner=runner)
+    clear()
+    got = run_query_collect(storage, tenants, q, runner=runner)
+    torch.cuda.synchronize()
+    if got != want or not want:
+        fail(f"filter cache: {q!r}: the answer with the filter cache "
+             f"cleared differs ({got} vs {want})")
+    ids_warm, lookup_warm = lookups(False)
+    ids_cleared, lookup_cleared = lookups(True)
+    if ids_warm != ids_cleared or not any(ids_warm):
+        fail(f"filter cache: the lookup's stream ids differ warm and "
+             f"cleared")
+    walls = {"warm": [], "cleared": []}
+    for _ in range(RC_TIMED_RUNS + 2):
+        for tag, fn in (("cleared", cleared_query), ("warm", query)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[tag].append(time.perf_counter() - t0)
+    fig = {"query": q, "streams": sum(len(i) for i in ids_warm),
+           "query_p50_s_warm": statistics.median(walls["warm"]),
+           "query_p50_s_cleared": statistics.median(walls["cleared"]),
+           "lookup_s_warm": lookup_warm,
+           "lookup_s_cleared": lookup_cleared}
+    log(f"filter cache: {q!r} p50 {fig['query_p50_s_warm']:.6f} s with "
+        f"the stream filter cache warm, {fig['query_p50_s_cleared']:.6f} s "
+        f"cleared before each run; the lookup of {fig['streams']} streams "
+        f"{lookup_warm * 1e3:.6f} ms warm, {lookup_cleared * 1e3:.6f} ms "
+        f"cleared (mean of {RC_LOOKUPS}); answers equal")
     return fig
 
 
@@ -2541,6 +2922,9 @@ def main() -> int:
                     help="stop after the kernel checks and the sweeps "
                          "(bring-up runs)")
     args = ap.parse_args()
+    # every phase but the result cache's measures the kernels: each run
+    # recomputes every part
+    os.environ["VL_RESULT_CACHE"] = "0"
 
     import torch
     if not torch.cuda.is_available():
@@ -2579,6 +2963,10 @@ def main() -> int:
     from victorialogs_tpu_torch.utils.hashing import hash_tokens
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+    # the main store's bodies are made while the kernels build and are
+    # checked (set-up, on the host's other cores)
+    bodies = None if args.skip_main else start_bodies(
+        "jsonline", ROWS, FLUSHES, seed=MAIN_SEED)
 
     # phase 1
     secs = build.build_all()
@@ -2622,7 +3010,8 @@ def main() -> int:
     for k in vlinsert.INGEST_COUNTERS:
         vlinsert.INGEST_COUNTERS[k] = 0
     storage, start, nrows, fig = ingest_route("jsonline", ROWS, FLUSHES,
-                                              seed=11, path=store_dir)
+                                              seed=MAIN_SEED, path=store_dir,
+                                              bodies=bodies)
     t_ingest = time.perf_counter() - t0
     counters = dict(vlinsert.INGEST_COUNTERS)
     log_ingest(fig, counters)
@@ -3138,10 +3527,16 @@ def main() -> int:
         row for row in sw if row["kernel"] == "stats_values"]
     log(json.dumps({"sweep": sw + gate_sweep(rng, dev)}))
     log(f"sweeps: {time.perf_counter() - t_phase:.1f} s")
+    # the result cache phase ends with the main store's force merge;
+    # phase 4's part must not outlive it
+    del part
     t_phase = time.perf_counter()
-    durable["force_merge"] = durable_force_merge(storage, tenants, runner,
-                                                 durable_before)
-    log(f"durable force merge and checks: "
+    for w in wrappers:
+        w.launches = 0
+    rcache = result_cache_path(storage, tenants, runner, wrappers, timed,
+                               start, durable_before)
+    durable["force_merge"] = rcache.pop("force_merge")
+    log(f"result cache phase (durable force merge included): "
         f"{time.perf_counter() - t_phase:.1f} s")
     runner.close()
     storage.close()
@@ -3154,7 +3549,8 @@ def main() -> int:
         else "nvidia-smi: no output")
     print(json.dumps({"kernels": kern, "answers": [
         {k: r[k] for k in ANSWER_KEYS if k in r} for r in report],
-        "packed": packed, "ingest": ingest_figs, "durable": durable}))
+        "packed": packed, "ingest": ingest_figs, "durable": durable,
+        "result_cache": rcache}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """The port's environment knobs: the dispatch window and small-part
-packing (gpu/pipeline.py), with the JAX package's names, defaults and
-parsing.
+packing (gpu/pipeline.py) and the per-part result cache, with the JAX
+package's names, defaults and parsing.
 
 - VL_INFLIGHT (4): dispatch units kept outstanding; 1 is the serial
   submit-then-harvest walk.
@@ -11,6 +11,10 @@ parsing.
 - VL_CROSS_PARTITION (1): 0 drains the window at every day boundary.
 - VL_PACK_MAX_ROWS (unset): parts above this many rows never pack;
   unset, gpu/pipeline.py's floor of 16,384 rows holds.
+- VL_RESULT_CACHE (1): the per-part result cache
+  (engine/standing/resultcache.py); 0 recomputes every part.
+- VL_RESULT_CACHE_MAX_BYTES (64 MiB): its byte budget; past it the
+  least recently used entries are evicted.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ DEFAULTS = {
     "VL_PACK_TOPK_K": "1024",
     "VL_CROSS_PARTITION": "1",
     "VL_PACK_MAX_ROWS": None,
+    "VL_RESULT_CACHE": "1",
+    "VL_RESULT_CACHE_MAX_BYTES": str(64 << 20),
 }
 
 

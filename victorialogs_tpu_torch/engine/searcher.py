@@ -64,6 +64,7 @@ from ..obs import tracing
 from ..storage.log_rows import TenantID, parse_stream_id
 from .block_result import BlockResult
 from .block_search import BlockSearch
+from .standing.resultcache import QueryCache
 
 
 @dataclass
@@ -201,17 +202,34 @@ def _partition_parts(pt, q: Query, tenants: tuple, min_ts: int,
             yield part, bis, ctx
 
 
-def _walk_host(items, f, head, needed) -> None:
-    """The host executor's serial walk, block by block."""
+def _walk_host(items, f, head, needed, qcache=None) -> None:
+    """The host executor's serial walk, block by block.  A part the
+    result cache holds replays its bitmaps in block order; a part walked
+    to its end stores its bitmaps."""
+    sp = tracing.current_span()
     for part, bis, ctx in items:
+        sp.add("blocks_candidate", len(bis))
+        cached = None
+        if qcache is not None and qcache.kind == "bms":
+            e = qcache.probe(part, bis)
+            if e is not None:
+                cached = qcache.entry_bms(e)
+        collected: dict = {}
         for bi in bis:
             if head.is_done():
                 return
             bs = BlockSearch(part, bi, ctx)
-            bm = host_bitmap(f, bs)
+            if cached is not None:
+                bm = cached[bi]
+            else:
+                bm = collected[bi] = host_bitmap(f, bs)
             if bm.any():
-                head.write_block(BlockResult.from_block_search(bs, bm,
-                                                               needed))
+                br = BlockResult.from_block_search(bs, bm, needed)
+                sp.add("blocks_out")
+                sp.add("rows_out", br.nrows)
+                head.write_block(br)
+        if cached is None and qcache is not None:
+            qcache.store_bms(part, bis, collected)
 
 
 def run_query(storage, tenants, q: Query | str, write_block,
@@ -242,6 +260,10 @@ def run_query(storage, tenants, q: Query | str, write_block,
     spec = runner.stats_spec(q) if runner is not None else None
     sort_spec = device_sort_spec(q) if runner is not None and \
         spec is None else None
+    # the per-part result cache: a part seen by an earlier run of the
+    # query replays its stats partials or bitmaps (None: not applicable)
+    qcache = QueryCache.for_query(q, tenants, spec, sort_spec, min_ts,
+                                  max_ts)
     pts = storage.select_partitions(min_ts, max_ts)
     qsp = tracing.current_span()
 
@@ -250,7 +272,7 @@ def run_query(storage, tenants, q: Query | str, write_block,
 
     if runner is None:
         _walk_host((it for pt in pts for it in parts(pt)), q.filter, head,
-                   needed)
+                   needed, qcache)
     else:
         def absorb(partials):
             absorb_stats_partials(head, q.pipes[0], spec, partials)
@@ -263,7 +285,7 @@ def run_query(storage, tenants, q: Query | str, write_block,
             if head.is_done():
                 break
             scan_device_stream(items, q.filter, head, runner, needed, spec,
-                               sort_spec, absorb)
+                               sort_spec, absorb, qcache)
     head.flush()
 
 

@@ -230,7 +230,8 @@ class TorchBatchRunner:
                                "cpu_fallbacks": 0, "topk_parts": 0,
                                "topk_declines": 0, "topk_rows": 0,
                                "units": 0, "packed_units": 0,
-                               "packed_parts": 0, "inflight_hwm": 0}
+                               "packed_parts": 0, "inflight_hwm": 0,
+                               "result_cache_units": 0}
         self._packs: OrderedDict = OrderedDict()
         self._pack_ties: set = set()
 

@@ -12,7 +12,9 @@ A part's columns are staged over all its blocks at once by
 gpu/fused.py (`stage_layout_column`); staged tensors are LRU-cached
 across queries by (part uid, kind, ...) under a device-byte budget
 (`StagingCache`); a part's entries go when the part is dropped
-(`drop_part`, called as a flush replaces an in-memory part).
+(`drop_part`, called as a flush replaces an in-memory part).  Each value
+put counts `staged_entries` and `staged_bytes` on the active trace's
+span.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import threading
 from collections import OrderedDict
 
 import numpy as np
+
+from ..obs import tracing
 
 MAX_ROW_WIDTH = 2048  # values longer than W-1 overflow to the host path
 STAGING_BUDGET_BYTES = 8 << 30  # device bytes a runner keeps staged
@@ -139,6 +143,12 @@ class StagingCache:
             while self._bytes > self.max_bytes and len(self._lru) > 1:
                 _, old = self._lru.popitem(last=False)
                 self._bytes -= self._cost(old)
+        # the active trace's staging counters (a no-op untraced); a
+        # duplicate key returned above, so each value counts once
+        sp = tracing.current_span()
+        if sp.enabled:
+            sp.add("staged_entries")
+            sp.add("staged_bytes", cost)
 
     def bytes(self) -> int:
         with self._mu:

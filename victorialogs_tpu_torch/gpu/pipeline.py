@@ -30,13 +30,23 @@ units and keeps several of them on the card at once:
    stats staging cannot express runs member by member, each member its
    own unit's work on the card.
 
+3. **Result-cache units.**  With the per-part result cache on
+   (engine/standing/resultcache.py), each (part, candidate blocks) is
+   probed before grouping.  A hit becomes a unit of its own (its
+   `_CacheHit` lies above every pack's row cap, so it never joins a
+   pack) that holds the cached partials or bitmaps: it is never staged
+   nor submitted, launches nothing, and rides the window in submission
+   order, so the blocks written and the partials absorbed come in the
+   order of the uncached walk and the answer is bit-identical.  `emit`
+   stores every harvested member the query did not replay.
+
 A satisfied limit stops the window: no unit is submitted after it, the
 handles still in flight are dropped unwritten (each waits for its copy,
 so its pinned buffers outlive it), and every staged tensor stays in the
 runner's byte-accounted cache.  The JAX package's counterpart is
 victorialogs_tpu/tpu/pipeline.py; its adaptive depth and pack cap (the
-cost model), the shared device-slot scheduler, the result-cache units
-and deadlines are not here.
+cost model), the shared device-slot scheduler and deadlines are not
+here.
 """
 
 from __future__ import annotations
@@ -263,10 +273,12 @@ class PackedPart:
 @dataclass
 class _Member:
     """One member part's share of a harvested unit."""
+    part: object                   # the member part (never a pack)
     blocks: list                   # [(block idx, BlockSearch)]
     bms: dict                      # block idx -> bool bitmap
     handled: set                   # block idxs reduced in partials
     partials: list
+    cached: bool = False           # replayed from the result cache
 
 
 @dataclass
@@ -275,6 +287,32 @@ class _Unit:
     bss: dict                      # unit block idx -> BlockSearch
     members: list                  # [(member part, [(block idx, bs)])]
     pack: bool = False
+
+
+class _CacheHit:
+    """A part whose result the result cache holds, as the unit stream's
+    planning sees it: num_rows lies above every pack cap, so
+    iter_pack_groups keeps it in a group of its own; a cached part
+    never joins a pack."""
+
+    __slots__ = ("part", "entry")
+    num_rows = 1 << 62
+
+    def __init__(self, part, entry):
+        self.part = part
+        self.entry = entry
+
+
+class _CachedUnit:
+    """A unit answered wholly from the result cache: never staged nor
+    submitted, it rides the window as a finished member, so it is
+    harvested in submission order."""
+
+    pack = False
+    cached = True
+
+    def __init__(self, member: _Member):
+        self.ready = [member]
 
 
 class _Harvest:
@@ -299,16 +337,16 @@ class _Harvest:
         if self.kind == "members":
             return got
         if not unit.pack:
-            _p, blocks = unit.members[0]
+            p, blocks = unit.members[0]
             if self.kind == "rows":
-                return [_Member(blocks, got, set(), [])]
+                return [_Member(p, blocks, got, set(), [])]
             bms, handled, partials = got
-            return [_Member(blocks, bms, handled, partials)]
+            return [_Member(p, blocks, bms, handled, partials)]
         out = []
         if self.kind == "rows":
-            for mi, (_p, blocks) in enumerate(unit.members):
+            for mi, (p, blocks) in enumerate(unit.members):
                 off = unit.part.block_offset(mi)
-                out.append(_Member(blocks,
+                out.append(_Member(p, blocks,
                                    {bi: got[off + bi] for bi, _bs in blocks},
                                    set(), []))
             return out
@@ -319,17 +357,42 @@ class _Harvest:
         per_seg: dict[int, list] = {}
         for p in got[2]:
             per_seg.setdefault(p[0][0][1], []).append(p)
-        for mi, (_p, blocks) in enumerate(unit.members):
-            out.append(_Member(blocks, {}, {bi for bi, _bs in blocks},
+        for mi, (p, blocks) in enumerate(unit.members):
+            out.append(_Member(p, blocks, {}, {bi for bi, _bs in blocks},
                                per_seg.get(mi, [])))
         return out
 
 
-def _unit_stream(runner, items, sort_spec):
+def _probed(items, qcache):
+    """The part stream with each part the result cache holds for its
+    candidate blocks as a _CacheHit."""
+    for part, bis, ctx in items:
+        e = qcache.probe(part, bis)
+        yield (part if e is None else _CacheHit(part, e)), bis, ctx
+
+
+def _cached_unit(hit: _CacheHit, bis, ctx, qcache) -> _CachedUnit:
+    e = hit.entry
+    if e.kind == "stats":
+        member = _Member(hit.part, [], {}, set(), qcache.entry_partials(e),
+                         cached=True)
+    else:
+        member = _Member(hit.part,
+                         [(bi, BlockSearch(hit.part, bi, ctx)) for bi in bis],
+                         qcache.entry_bms(e), set(), [], cached=True)
+    return _CachedUnit(member)
+
+
+def _unit_stream(runner, items, sort_spec, qcache=None):
     """Fold the pruned part stream, (part, candidate block idxs, ctx)
     items in walk order, into dispatch units, lazily."""
     packable, pack_max, rows_cap = pack_policy(sort_spec)
+    if qcache is not None:
+        items = _probed(items, qcache)
     for group in iter_pack_groups(items, packable, pack_max, rows_cap):
+        if len(group) == 1 and isinstance(group[0][0], _CacheHit):
+            yield _cached_unit(*group[0], qcache)
+            continue
         if len(group) == 1:
             p, bis, ctx = group[0]
             blocks = [(bi, BlockSearch(p, bi, ctx)) for bi in bis]
@@ -355,14 +418,14 @@ def _per_member(runner, f, unit: _Unit, stats_spec, sort_spec) -> Ready:
         if stats_spec is not None:
             bms, handled, partials = runner.run_part_stats(f, p, bss,
                                                            stats_spec)
-            out.append(_Member(blocks, bms, handled, partials))
+            out.append(_Member(p, blocks, bms, handled, partials))
             continue
         bms = None
         if sort_spec is not None:
             bms = runner.run_part_topk(f, p, bss, sort_spec)
         if bms is None:
             bms = runner.run_part(f, p, bss)
-        out.append(_Member(blocks, bms, set(), []))
+        out.append(_Member(p, blocks, bms, set(), []))
     return Ready(out)
 
 
@@ -400,19 +463,21 @@ def _sync(event) -> None:
 
 
 def scan_device_stream(items, f, head, runner, needed, stats_spec,
-                       sort_spec, absorb) -> None:
+                       sort_spec, absorb, qcache=None) -> None:
     """Drive a part stream, (part, candidate block idxs, ctx) items from
     one or more partitions pulled lazily, through the dispatch window:
     up to VL_INFLIGHT units outstanding, harvested in submission order,
     each member's stats partials absorbed by `absorb(partials)` and its
-    blocks written to `head` as the serial walk writes them."""
+    blocks written to `head` as the serial walk writes them.  `qcache`
+    (engine/standing/resultcache.QueryCache, or None) answers the parts
+    it holds and stores the members harvested."""
     depth = inflight_depth()
     spec_seg = with_segment_axis(stats_spec) \
         if stats_spec is not None and pack_limit() > 1 else None
     counters = runner.stats_counters
     window: deque = deque()       # (seq, unit, _Harvest)
     lookahead: deque = deque()
-    stream = _unit_stream(runner, items, sort_spec)
+    stream = _unit_stream(runner, items, sort_spec, qcache)
     exhausted = False
     staged: set = set()
     seq = 0
@@ -437,6 +502,9 @@ def scan_device_stream(items, f, head, runner, needed, stats_spec,
         """Write the harvested members; False once the head is done."""
         sp = tracing.current_span()
         for m in members:
+            if qcache is not None:
+                # skips the parts this query replayed
+                qcache.store_member(m)
             if stats_spec is not None and m.partials:
                 sp.add("stats_partials", len(m.partials))
                 absorb(m.partials)
@@ -450,7 +518,8 @@ def scan_device_stream(items, f, head, runner, needed, stats_spec,
                     continue
                 br = BlockResult.from_block_search(bs, bm, needed)
                 sp.add("blocks_out")
-                sp.add("rows_downloaded", br.nrows)
+                sp.add("rows_out" if m.cached else "rows_downloaded",
+                       br.nrows)
                 head.write_block(br)
         return True
 
@@ -475,7 +544,8 @@ def scan_device_stream(items, f, head, runner, needed, stats_spec,
                 unit = lookahead.popleft()
                 # stage the units in the lookahead: their host staging
                 # and non-blocking uploads overlap the units on the card
-                todo = [u for u in lookahead if u.part.uid not in staged]
+                todo = [u for u in lookahead if not getattr(u, "cached", False)
+                        and u.part.uid not in staged]
                 if todo:
                     with plsp.span("stage", units=len(todo)):
                         for u in todo:
@@ -490,6 +560,15 @@ def scan_device_stream(items, f, head, runner, needed, stats_spec,
                         break
                 if done or head.is_done():
                     break
+                if getattr(unit, "cached", False):
+                    # a result-cache hit: in the window for the harvest
+                    # order, never staged, submitted or launched
+                    window.append((seq, unit, Ready(unit.ready)))
+                    seq += 1
+                    counters["result_cache_units"] += 1
+                    counters["inflight_hwm"] = max(counters["inflight_hwm"],
+                                                   len(window))
+                    continue
                 with plsp.span("submit", unit=seq,
                                blocks=len(unit.bss)) as ssp:
                     if ssp.enabled:

@@ -1091,6 +1091,7 @@ class FilterTime(Filter):
     min_ts: int                      # inclusive, ns
     max_ts: int                      # inclusive, ns
     repr_str: str = ""
+    relative: bool = False           # a bound was read from `now`
 
     def apply_to_block(self, bs, bm):
         ts = bs.timestamps()

@@ -88,6 +88,7 @@ class Lexer:
         self.is_skipped_space = False
         self.is_quoted = False
         self.timestamp = timestamp
+        self.now_reads = 0          # times a `_time` bound read `now`
         self.next_token()
 
     def is_end(self) -> bool:

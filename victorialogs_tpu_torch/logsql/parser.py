@@ -546,6 +546,7 @@ _FUNC_FILTERS = {
 # ---- _time filters ----
 
 def _now_ns(lex: Lexer) -> int:
+    lex.now_reads += 1
     if lex.timestamp is not None:
         return lex.timestamp
     import time
@@ -557,6 +558,7 @@ def _parse_filter_time_generic(lex: Lexer) -> Filter:
         return _parse_day_range(lex)
     if lex.is_keyword("week_range"):
         return _parse_week_range(lex)
+    reads = lex.now_reads
     f = _parse_filter_time(lex)
     if lex.is_keyword("offset"):
         lex.next_token()
@@ -566,6 +568,7 @@ def _parse_filter_time_generic(lex: Lexer) -> Filter:
             raise ParseError(f"invalid offset duration {tok!r}")
         f = FilterTime(f.min_ts - off, f.max_ts - off,
                        repr_str=f"{f.repr_str} offset {tok}".strip())
+    f.relative = lex.now_reads > reads
     return f
 
 

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..obs import tracing
 from .bloom import (BLOOM_HASHES, bloom_contains_all,
                     bloom_probe_positions_multi)
 
@@ -108,11 +109,25 @@ def bloom_keep_mask(part, field: str, hashes: np.ndarray,
     bis = list(bis)
     pl = bloom_plane(part, field)
     if pl is not None:
-        return pl.keep_mask(hashes, bis)
+        return _observe_keep(pl.keep_mask(hashes, bis))
     keep = np.ones(len(bis), dtype=bool)
+    if len(hashes) == 0:
+        return keep
     for k, bi in enumerate(bis):
         w = part.block_column_bloom(bi, field)
         if w is not None and w.shape[0] and \
                 not bloom_contains_all(w, hashes):
             keep[k] = False
+    return _observe_keep(keep)
+
+
+def _observe_keep(keep: np.ndarray) -> np.ndarray:
+    """An active trace's span counts `blocks_probed_bloom` and
+    `blocks_killed_bloom` of each probe."""
+    n = int(keep.shape[0])
+    if n:
+        sp = tracing.current_span()
+        if sp.enabled:
+            sp.add("blocks_probed_bloom", n)
+            sp.add("blocks_killed_bloom", n - int(keep.sum()))
     return keep

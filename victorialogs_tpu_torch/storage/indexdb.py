@@ -26,6 +26,11 @@ log replays and the replayed tail is written as a new level before the
 manifest drops the torn one, so a stream of the torn level is never
 left behind the replay offset of a later open.
 
+The answers of `search_stream_ids` are kept in a two-generation cache
+(utils/cache.py, the JAX package's filter cache), keyed by (tenants,
+stream filter) and cleared wherever the streams or the levels change:
+a registration, a new level, a merge.
+
 `MemoryIndex` is the index of a memory-only partition: a dict.
 """
 
@@ -38,6 +43,7 @@ import struct
 
 import numpy as np
 
+from ..utils.cache import TwoGenCache
 from .log_rows import StreamID, TenantID
 from .part import fsync_dir
 from .stream_filter import StreamFilter, _compiled, parse_stream_tags
@@ -122,6 +128,8 @@ class IndexDB:
         self._snaps: list[StreamSnapshot] = []      # oldest -> newest
         self._snap_files: list[str] = []            # parallel to _snaps
         self._snap_seq = 0
+        # (tenants, stream filter) -> the matching stream ids
+        self._filter_cache = TwoGenCache()
         replay_from, torn = self._load_levels()
         new_log = not os.path.exists(self._file_path)
         if not new_log:
@@ -280,6 +288,7 @@ class IndexDB:
         self._snap_files.append(fn)
         self._write_manifest()
         self._clear_tail()
+        self._filter_cache.clear()
 
     def _merge(self, pick: list[int]) -> None:
         """Merge the levels at indexes `pick` into one, appended last."""
@@ -294,6 +303,7 @@ class IndexDB:
         self._snap_files = [self._snap_files[i] for i in keep] + [fn]
         self._write_manifest()
         self.merge_count += 1
+        self._filter_cache.clear()
         for s in srcs:
             s.close()
 
@@ -367,6 +377,8 @@ class IndexDB:
             wrote = True
         if wrote:
             self.flush()
+            # registrations change what a filter matches
+            self._filter_cache.clear()
             if len(self._streams) >= COMPACT_TAIL_STREAMS:
                 self._flush_tail()
                 self._merge_levels_if_needed()
@@ -440,6 +452,10 @@ class IndexDB:
     def search_stream_ids(self, tenants: list[TenantID],
                           sf: StreamFilter) -> list[StreamID]:
         """Stream ids of `tenants` whose tags match the filter, sorted."""
+        key = (tuple(tenants), sf)
+        cached = self._filter_cache.get(key)
+        if cached is not None:
+            return cached
         result: set[StreamID] = set()
         for t in tenants:
             tail_all = set(self._by_tenant.get(t, ()))
@@ -476,7 +492,9 @@ class IndexDB:
                 # rows are sorted by (tenant, hi, lo), StreamID's order
                 lists.append(snap.streams_at(
                     np.unique(np.concatenate(chunks))))
-        return list(heapq.merge(*lists))
+        out = list(heapq.merge(*lists))
+        self._filter_cache.put(key, out)
+        return out
 
     def all_stream_ids(self, tenants: list[TenantID]) -> list[StreamID]:
         out: list[StreamID] = []
