@@ -35,7 +35,13 @@ Phases, each fatal on failure:
    case and behind a gate on every pair edge case (`pair_gated_runs`),
    both outputs, the counts of definite, maybe and gated-out rows
    printed; and the fold scan of an `i()` leaf with and without its
-   multibyte mask (`check_fold`).
+   multibyte mask (`check_fold`); the split-block probe alone
+   (`plane_keep_sb`) against its plain version and the host probe at
+   1-3,001 blocks x 1, 4 and 8 tokens and at the split-block gate's
+   edges (`sb_gate_edge_cases`: blocks of 0-33 and 15,625 rows, nsb 0,
+   1, 4, 5 and 8 tokens, lane bases outside the plane, more block
+   starts than the gated kernels keep in shared memory), and the scan
+   and the pair behind every such gate (`check_gated_sb`).
 3. main path: ingest 2M generated rows as a user sends them, through
    /insert/jsonline (`handle_jsonline`, the generator's JSON-lines
    bodies, made in spawned processes while phases 1 and 2 run) into a durable Storage in a temporary directory (removed at
@@ -64,10 +70,11 @@ Phases, each fatal on failure:
    for both of its value columns; the pair query `regex_pair` the pair
    kernel once; `regex_verify` the scan once for its literal run
    "quota ", its candidate rows settled by re.search on the host)
-   and launch no other kernel (the bloom query `quota`: the gated scan
-   alone, no standalone probe or scan).  Every kernel's launch counter
-   is zeroed right before this phase, and each kernel of the main path
-   (scan, gated scan, count, value reduction, pair) must move; the
+   and launch no other kernel (the bloom query `quota`: one scan, no
+   gate and no standalone probe: its parts are sealed, and the walk's
+   maplet already dropped the blocks without `quota`).  Every kernel's
+   launch counter is zeroed right before this phase, and each kernel of
+   the main path (scan, count, value reduction, pair) must move; the
    planner launches no standalone probe.  `anycase` (`i(ERROR)`) and
    `anycase_prefix` (`i(RESP*)`) must return the host executor's rows of
    `phrase` and `prefix`, run just before them (ANYCASE_TWINS; no host
@@ -114,7 +121,9 @@ Phases, each fatal on failure:
    right before it (`slice_queries`): `error | sort by (dur) desc limit
    10`, `error | first 5 by (dur)` and `quota | last 3 by (dur)` (the
    top-k prefilter: `topk_parts` equal to the device parts, no decline,
-   one scan or gated scan a part; the rows the card returned are
+   one scan a part: the store's parts are sealed, so the walk's maplet
+   leaves `quota` only its blocks and nothing to gate; the rows the
+   card returned are
    printed against the filter's matches, and the device operations of a
    warm run with the most device time; their /select/logsql/query
    answers are held against the host executor's rows serialized, not
@@ -126,8 +135,24 @@ Phases, each fatal on failure:
    (`handle_hits`, `error` by `_time:1h` and `app`) and
    /select/logsql/stats_query_range (`error | stats by (app) count()`,
    step 1h), each equal to the same handler with no runner and through
-   the default runner, one scan and one count launch a part.  The scan,
-   the gated scan and the count must move on this path.  Then the
+   the default runner, one scan and one count launch a part.  The scan
+   and the count must move on this path.  Then the filter index path
+   (`filter_index_path`, its counts zeroed before each query): each
+   part directory of the main store holds a filterindex.bin the
+   port's loader accepts (its bytes and each flush's seal seconds
+   printed); a sealed copy of the gated pair's store (PATH_ROWS rows
+   of `path_rows`, one flush into a temporary directory) too; then
+   `filter_index_queries`, each equal to the host executor and to its
+   VL_FILTER_INDEX=v1 answer with every part on the card and its
+   listed launches a part: on the main store `quota | stats by (app)
+   count()` (the maplet drops the blocks without `quota`:
+   `maplet_pruned_blocks` moves, one plain scan), `error !quota |
+   stats count()` and `(quota or _stream:{app="app-7"}) | stats by
+   (app) count()` (the split-block gated scan under NOT and `or`); on
+   the path store the pair `~"/api/v1/users.*timeout"` as an AND leaf
+   (pruned, one plain pair) and two pairs under `or` (two split-block
+   gated pairs a part).  The split-block gated scan and pair must move
+   on this path.  Then the
    transform path on the routes' jsonline store (ROUTE_ROWS rows), its
    counts zeroed right before it (`transform_queries`): an `extract`
    feeding `stats by`, `unpack_json`, `math`, `format`, `top`,
@@ -198,12 +223,19 @@ Phases, each fatal on failure:
    (`durable_force_merge`), the result cache must balance with no
    entry of the merged parts left, and the next run misses on the
    merged part alone; then a batch of RC_BATCH_ROWS rows is added and
-   the next run recomputes its in-memory part alone; the card's name
+   the next run recomputes its in-memory part alone; then the filter
+   index's part kill (`filter_index_kill`): the merged part's
+   filterindex.bin loads, a batch of NEEDLE_ROWS rows (every 50th
+   holding the word `needle`) is flushed with the waiting batch into a
+   new sealed part, and `needle | stats by (app) count()` through a
+   fresh runner kills the merged part by its xor aggregate, stages
+   nothing of it and equals the host executor; the card's name
    and power limit,
    then a JSON line of kernel figures, each query's answer figures
    (`answers`), each route's ingest figures (`ingest`), the durable
-   store's (`durable`) and the result cache phase's (`result_cache`),
-   and a last JSON line with the device.
+   store's (`durable`, each flush's filter index seal in `seals`), the
+   result cache phase's (`result_cache`) and the filter index's
+   (`filter_index`), and a last JSON line with the device.
 
 VL_RESULT_CACHE is 0 for every phase but the result cache's, so every
 other run recomputes every part and measures the kernels.
@@ -746,6 +778,197 @@ def check_edges(rng, dev, stats: dict) -> None:
     stats["count_edges"] = n
 
 
+def sb_gate_case(rng, sizes, t: int = 2, first: int = 0, kept=0.5,
+                 no_filter: float = 0.0, outside: float = 0.0,
+                 mmax: int = 4):
+    """(starts, plane, nsb, sbidx, mask) numpy arrays of a split-block
+    gate over blocks of the given row counts from row `first`, padded
+    as the runner stages them: each block holds 1..mmax split blocks of
+    random lanes, t tokens of 6 random mask bits each select one.  A
+    block is kept with probability `kept` (or where the bool array says
+    so): every token's mask bits set in its 8 lanes.  Otherwise one
+    token (drawn from the second round of four for half the blocks when
+    t > 4) misses: one of its bits is clear or, for a share `outside` of
+    them, its lane base lies outside the plane (zero lanes).  A share
+    `no_filter` of the blocks has nsb == 0 and is kept whatever its
+    lanes."""
+    import numpy as np
+    from victorialogs_tpu_torch.gpu.bloom_device import (pad_sb_idx,
+                                                         pad_sb_plane)
+    b = len(sizes)
+    starts = (first + np.concatenate([[0], np.cumsum(sizes)])) \
+        .astype(np.int32)
+    nsb = rng.integers(1, mmax + 1, size=b).astype(np.int32)
+    nsb[rng.random(b) < no_filter] = 0
+    lp = 8 * mmax
+    plane = rng.integers(0, 1 << 32, size=(b, lp), dtype=np.uint64) \
+        .astype(np.uint32)
+    pos = rng.integers(0, 256, size=(t, 6))
+    mask = np.zeros((t, 8), dtype=np.uint32)
+    np.bitwise_or.at(mask, (np.repeat(np.arange(t), 6), (pos >> 5).ravel()),
+                     np.uint32(1) << (pos & 31).ravel().astype(np.uint32))
+    sbidx = (8 * (rng.integers(0, 1 << 30, size=(b, t))
+                  % np.maximum(nsb, 1)[:, None])).astype(np.int32)
+    rows = np.repeat(np.arange(b), t)
+    for k in range(8):
+        np.bitwise_or.at(plane, (rows, sbidx.ravel() + k),
+                         np.tile(mask[:, k], b))
+    keep = rng.random(b) < kept if np.isscalar(kept) else np.asarray(kept)
+    j = rng.integers(0, t, size=b)
+    if t > 4:
+        j[::2] = rng.integers(4, t, size=j[::2].size)
+    for bi in np.nonzero(~keep)[0].tolist():
+        tj = int(j[bi])
+        if rng.random() < outside:
+            sbidx[bi, tj] = lp + 8 * bi if bi % 2 else -8 - bi
+            continue
+        k = int(rng.choice(np.nonzero(mask[tj])[0]))
+        bits = np.nonzero([(int(mask[tj, k]) >> q) & 1
+                           for q in range(32)])[0]
+        plane[bi, sbidx[bi, tj] + k] &= \
+            ~np.uint32(1 << int(rng.choice(bits)))
+    plane, ns = pad_sb_plane(plane, nsb)
+    sbidx = pad_sb_idx(sbidx, plane.shape[0])
+    return starts, plane.view(np.int32), ns, sbidx, mask.view(np.int32)
+
+
+def sb_gate_edge_cases(rng) -> list:
+    """(label, starts, plane, nsb, sbidx, mask) split-block gates over
+    GATE_ROWS rows at the edges of the gate: blocks of 0-33 rows, three
+    of 15,625 (the main path's), all and no blocks kept, blocks without
+    a filter (nsb 0), 1, 4, 5 and 8 tokens (the warp tests four a
+    round), lane bases outside the plane, and more block starts than
+    GATE_STARTS_CAP."""
+    import numpy as np
+    cut = [1, 31, 32, 33, 0] * 300
+
+    def sizes(n=300, lo=1, hi=150):
+        return rng.integers(lo, hi + 1, size=n)
+
+    return [
+        ("sizes-0-1-31-32-33", *sb_gate_case(rng, cut, t=1, first=7)),
+        ("blocks-15625", *sb_gate_case(rng, [15625] * 3, t=1,
+                                       kept=np.array([True, False, True]))),
+        ("all-kept", *sb_gate_case(rng, sizes(), kept=1.0)),
+        ("none-kept", *sb_gate_case(rng, sizes(), kept=0.0)),
+        ("nsb0", *sb_gate_case(rng, sizes(), kept=0.0, no_filter=0.4)),
+        ("t1", *sb_gate_case(rng, sizes(150, 40, 300), t=1)),
+        ("t4", *sb_gate_case(rng, sizes(150, 40, 300), t=4)),
+        ("t5", *sb_gate_case(rng, sizes(150, 40, 300), t=5)),
+        ("t8", *sb_gate_case(rng, sizes(150, 40, 300), t=8, mmax=16)),
+        ("outside-plane", *sb_gate_case(rng, sizes(), kept=0.3,
+                                        outside=0.7)),
+        ("starts-over-cap", *sb_gate_case(
+            rng, rng.integers(1, 36, size=GATE_STARTS_CAP + 300))),
+    ]
+
+
+def sb_inputs(dev, starts, plane, nsb, sbidx, mask):
+    """An sb_gate_case's arrays as an SbGate on `dev`."""
+    import torch
+    from victorialogs_tpu_torch.gpu.bloom_device import SbGate
+    return SbGate(*(torch.from_numpy(a).to(dev)
+                    for a in (plane, nsb, sbidx, mask, starts)))
+
+
+def check_probe_sb(rng, dev, stats: dict) -> None:
+    """The split-block probe alone (vl_plane_keep_sb) against its plain
+    version and the host probe (the JAX package's probe_np_sb) at sweep
+    shapes (1, 1,000 and 3,001 blocks x 1, 4 and 8 tokens, a tenth of
+    the blocks without a filter) and on every sb_gate_edge_cases gate
+    (nsb 0, T 1 and 8, the padded blocks)."""
+    import numpy as np
+    import torch
+    from victorialogs_tpu_torch.gpu.bloom_device import (plane_keep_sb,
+                                                         plane_keep_sb_plain,
+                                                         probe_np_sb)
+    cases = [(f"b={b} t={t}", *sb_gate_case(rng, [1] * b, t=t, mmax=mmax,
+                                            no_filter=0.1))
+             for b, mmax in ((1, 4), (1000, 4), (3001, 16))
+             for t in (1, 4, 8)]
+    n = 0
+    for label, _st, plane, nsb, sbidx, mask in \
+            cases + sb_gate_edge_cases(rng):
+        args = [torch.from_numpy(a).to(dev) for a in (plane, sbidx, mask,
+                                                      nsb)]
+        got = plane_keep_sb(*args)
+        want = plane_keep_sb_plain(*args)
+        host = probe_np_sb(plane.view(np.uint32), sbidx,
+                           mask.view(np.uint32), nsb) \
+            if (sbidx >= 0).all() and \
+            (sbidx.max(initial=0) + 8 <= plane.shape[1]) else None
+        n += 1
+        if not torch.equal(got, want) or (
+                host is not None and
+                not np.array_equal(want.cpu().numpy(), host)):
+            fail(f"probe_sb {label}")
+    stats["probe_sb"] = n
+
+
+def check_gated_sb(rng, dev, stats: dict) -> None:
+    """The scan and the pair behind split-block gates against their
+    plain versions: the scan on every sb_gate_edge_cases gate over
+    random rows and on GRID_STRIDE_ROWS rows behind blocks of 1-3,000
+    rows, every mode x fold x word boundary, with and without a maybe
+    column; the pair (both outputs) behind every gate over pair rows,
+    with and without an ovf column."""
+    import torch
+    from victorialogs_tpu_torch.gpu import kernels as K
+    from victorialogs_tpu_torch.gpu.bloom_device import keep_rows_plain
+    from victorialogs_tpu_torch.gpu.layout import to_lanes32
+    mat, lens = rand_rows(rng, GATE_ROWS, 32)
+    runs = [(f"sb gate {label}", mat, lens, g)
+            for label, *g in sb_gate_edge_cases(rng)]
+    gmat, glens = rand_rows(rng, GRID_STRIDE_ROWS, 32)
+    runs.append(("sb grid-stride", gmat, glens, sb_gate_case(
+        rng, block_sizes(rng, GRID_STRIDE_ROWS, 1, 3000))))
+    n = out = 0
+    for label, m, ln, g in runs:
+        lanes = torch.from_numpy(to_lanes32(m).view("<i4")).to(dev)
+        lt = torch.from_numpy(ln).to(dev)
+        gate = sb_inputs(dev, *g)
+        out += int((~keep_rows_plain(gate, len(ln))).sum())
+        ovf = torch.from_numpy(rng.random(len(ln)) < 0.1).to(dev)
+        for mode in range(5):
+            for fold in (False, True):
+                for st, et in ((False, False), (True, True)):
+                    for ov in (None, ovf):
+                        a = (lanes, lt, b"ab", mode, st, et, fold, gate, ov)
+                        got = K.match_scan_gated_sb(*a)
+                        want = K.match_scan_gated_plain(*a)
+                        n += 1
+                        if not (torch.equal(got[0], want[0]) and
+                                (ov is None) == (got[1] is None) and
+                                (ov is None or torch.equal(got[1], want[1]))):
+                            fail(f"gated_sb {label} mode={mode} fold={fold} "
+                                 f"st={st} et={et} ovf={ov is not None}")
+    if not out:
+        fail("gated_sb edge cases: no row ruled out")
+    stats["gated_sb_edges"] = n
+    a, b = b"ab", b"\xe2\x82\xacb"
+    pmat, plens = pair_rows(rng, GATE_ROWS, 32, a, b)
+    lanes = torch.from_numpy(to_lanes32(pmat).view("<i4")).to(dev)
+    lt = torch.from_numpy(plens).to(dev)
+    ovf = torch.from_numpy(rng.random(len(plens)) < 0.1).to(dev)
+    n = definite = maybe = 0
+    for label, *g in sb_gate_edge_cases(rng):
+        gate = sb_inputs(dev, *g)
+        for ov in (None, ovf):
+            got = K.match_pair_gated_sb(lanes, lt, a, b, gate, ov)
+            want = K.match_pair_gated_plain(lanes, lt, a, b, gate, ov)
+            if not (torch.equal(got[0], want[0]) and
+                    torch.equal(got[1], want[1])):
+                fail(f"pair_gated_sb {label} ovf={ov is not None}")
+            n += 1
+            definite += int(want[0].sum())
+            maybe += int(want[1].sum())
+    if not (definite and maybe):
+        fail(f"pair_gated_sb edge cases: {definite} definite, {maybe} "
+             f"maybe rows")
+    stats.update(pair_gated_sb_edges=n, pair_gated_sb_definite=definite,
+                 pair_gated_sb_maybe=maybe)
+
+
 # cells on both sides of count.cu's register path (kRegCells = 6) and of
 # its shared tables (one column's table fits the H100's 227 KB up to
 # 11,622 cells)
@@ -1117,8 +1340,8 @@ def gated_pair_work(lanes, lengths, gate, ovf=None) -> tuple[int, int]:
     counts for them (every byte in sectors, the 4-byte length); every
     row writes its two 1-byte results (and, with a maybe column, reads
     its 1-byte flag where its block is kept).  The B blocks of the gate
-    need their probes (`probe_work`'s 40 bytes each) and their 4-byte
-    word counts, and the 4(B+1) bytes of block starts."""
+    need what `gate_work` counts, and the 4(B+1) bytes of block
+    starts."""
     import torch
     from victorialogs_tpu_torch.gpu.bloom_device import keep_rows_plain
     r = lanes.shape[1]
@@ -1127,13 +1350,55 @@ def gated_pair_work(lanes, lengths, gate, ovf=None) -> tuple[int, int]:
     end = lengths.to(torch.int64).clamp(max=4 * lanes.shape[0])
     end = torch.where(need, end, torch.zeros_like(end))
     nb = gate.starts.numel() - 1
-    probes = int(probe_counts(gate.plane[:nb], gate.idx[:nb],
-                              gate.shift[:nb], gate.nwords[:nb]).sum())
-    nbytes = sector_bytes(end) + 4 * int(need.sum()) + 2 * r + 40 * probes \
-        + 4 * nb + 4 * (nb + 1)
+    gbytes, gops = gate_work(gate, nb)
+    nbytes = sector_bytes(end) + 4 * int(need.sum()) + 2 * r + gbytes \
+        + 4 * (nb + 1)
     if ovf is not None:
         nbytes += int(kept.sum())
-    return nbytes, int(end.sum()) + probes
+    return nbytes, int(end.sum()) + gops
+
+
+def sb_token_counts(plane, sbidx, mask, nsb):
+    """int64[B]: the tokens each block tests with a split-block probe,
+    up to and including the first that misses; none without a
+    filter."""
+    import torch
+    b, t = sbidx.shape
+    lp = plane.shape[1]
+    lane = sbidx.to(torch.int64)[:, :, None] + torch.arange(
+        8, device=plane.device)
+    inside = (lane >= 0) & (lane < lp)
+    words = torch.gather(plane, 1, lane.reshape(b, 8 * t).clamp(0, lp - 1)) \
+        .reshape(b, t, 8)
+    words = torch.where(inside, words, torch.zeros_like(words))
+    miss = ~((words & mask[None]) == mask[None]).all(dim=2)
+    n = torch.where(miss.any(dim=1), miss.to(torch.uint8).argmax(dim=1) + 1,
+                    torch.full_like(nsb, t, dtype=torch.int64))
+    return torch.where(nsb != 0, n, torch.zeros_like(n))
+
+
+def sb_probe_work(plane, sbidx, mask, nsb) -> tuple[int, int]:
+    """(bytes, lane tests) the split-block probe needs on this input:
+    each token a block tests (`sb_token_counts`) is one 32-byte sector
+    of the plane and its 4-byte lane base (8 lane tests); each block
+    reads its 4-byte filter count and writes its 1-byte keep; the
+    token masks (32 bytes a token) are read once."""
+    tokens = int(sb_token_counts(plane, sbidx, mask, nsb).sum())
+    return 36 * tokens + 5 * nsb.numel() + 32 * sbidx.shape[1], 8 * tokens
+
+
+def gate_work(gate, nb: int) -> tuple[int, int]:
+    """(bytes, tests) of the first nb blocks' probes behind a gate: a
+    BloomGate's `probe_work` less the 1-byte results (40 bytes a probe,
+    4 a word count), an SbGate's `sb_probe_work` likewise."""
+    from victorialogs_tpu_torch.gpu.bloom_device import SbGate
+    if isinstance(gate, SbGate):
+        tokens = int(sb_token_counts(gate.plane[:nb], gate.sbidx[:nb],
+                                     gate.mask, gate.nsb[:nb]).sum())
+        return 36 * tokens + 4 * nb + 32 * gate.mask.shape[0], 8 * tokens
+    probes = int(probe_counts(gate.plane[:nb], gate.idx[:nb],
+                              gate.shift[:nb], gate.nwords[:nb]).sum())
+    return 40 * probes + 4 * nb, probes
 
 
 def probe_counts(plane, idx, shift, nwords):
@@ -1165,8 +1430,11 @@ def gated_work(lanes, lengths, pattern: bytes, mode: int, starts_tok: bool,
     counts for them (their sectors, their 4-byte length); every row
     writes its 1-byte result (and, with a maybe column, reads its 1-byte
     flag where its block is kept and writes its 1-byte maybe).  The B
-    blocks of the gate need their probes (`probe_work`'s 40 bytes each)
-    and their 4-byte word counts, and the 4(B+1) bytes of block starts."""
+    blocks of the gate need what `gate_work` counts (a BloomGate's
+    probes at 40 bytes each and 4-byte word counts; an SbGate's tokens
+    at a 32-byte sector and a 4-byte lane base each, its 4-byte filter
+    counts and the token masks), and the 4(B+1) bytes of block
+    starts."""
     import torch
     from victorialogs_tpu_torch.gpu.bloom_device import keep_rows_plain
     r = lanes.shape[1]
@@ -1176,13 +1444,12 @@ def gated_work(lanes, lengths, pattern: bytes, mode: int, starts_tok: bool,
                       fold)
     end = torch.where(need, end, torch.zeros_like(end))
     nb = gate.starts.numel() - 1
-    probes = int(probe_counts(gate.plane[:nb], gate.idx[:nb],
-                              gate.shift[:nb], gate.nwords[:nb]).sum())
-    nbytes = sector_bytes(end) + 4 * int(need.sum()) + r + 40 * probes \
-        + 4 * nb + 4 * (nb + 1)
+    gbytes, gops = gate_work(gate, nb)
+    nbytes = sector_bytes(end) + 4 * int(need.sum()) + r + gbytes \
+        + 4 * (nb + 1)
     if ovf is not None:
         nbytes += int(kept.sum()) + r
-    return nbytes, int(end.sum()) + probes
+    return nbytes, int(end.sum()) + gops
 
 
 def values_work(mask, nb: int, ncol: int = 1) -> tuple[int, int]:
@@ -1535,11 +1802,18 @@ def store_by_route(route: str, batches: list, path: str | None = None):
                 "compressed_bytes":
                     after["compressed_size"] - before["compressed_size"],
                 "uncompressed_bytes":
-                    after["uncompressed_size"] - before["uncompressed_size"]})
+                    after["uncompressed_size"] - before["uncompressed_size"],
+                "seals": seals(storage)[len(fig["flushes"]):]})
     secs = fig["handler_s"] + fig["flush_s"]
     fig["rows_per_s"] = fig["rows"] / secs
     fig["us_per_row"] = secs / fig["rows"] * 1e6
     return storage, fig
+
+
+def seals(storage) -> list:
+    """The filter index figures of every part the durable store sealed
+    since it was opened, in order (storage/datadb.py `seals`)."""
+    return [s for pt in storage.partitions.values() for s in pt.ddb.seals]
 
 
 def start_bodies(route: str, total: int, flushes: int, seed: int):
@@ -1788,8 +2062,9 @@ def durable_reopen(storage, path: str, tenants, rows_sent: int):
 
 
 COLD_COUNTERS = ("staged_entries", "staged_bytes", "blocks_probed_bloom",
-                 "blocks_killed_bloom", "blocks_out", "rows_downloaded",
-                 "host_sync_wait_s")
+                 "blocks_killed_bloom", "blocks_probed_maplet",
+                 "blocks_killed_maplet", "parts_pruned_aggregate",
+                 "blocks_out", "rows_downloaded", "host_sync_wait_s")
 
 
 def cold_counters(root) -> dict:
@@ -2162,7 +2437,9 @@ def queries(start: int) -> list:
                        f"count()", {scan: 1, count: 1}),
         ("stream_stats", '_stream:{app="app-3"} timeout | stats count()',
          {scan: 1, count: 1}),
-        ("bloom", "quota", {"match_scan_gated": 1}),
+        # sealed parts: the walk's maplet keeps quota's blocks alone, so
+        # the leaf keeps every candidate and runs ungated
+        ("bloom", "quota", {scan: 1}),
         ("count_all", "* | stats count()", {count: 1}),
         # BASELINE config 4 on one chip
         ("uniq_all", "* | stats count(), count_uniq(_stream_id)",
@@ -2214,21 +2491,242 @@ def filter_queries(stream_id: str) -> list:
 
 def slice_queries() -> list:
     """The pipes' path on the main store: (name, LogsQL, {kernel:
-    launches per device part}, whether the top-k prefilter runs)."""
-    scan, gscan = "match_scan", "match_scan_gated"
+    launches per device part}, whether the top-k prefilter runs).  The
+    store's parts are sealed: `quota`'s maplet leaves the walk quota's
+    blocks alone, which its scan runs over ungated."""
+    scan = "match_scan"
     return [
         ("topk_desc", "error | sort by (dur) desc limit 10", {scan: 1},
          True),
         ("topk_first", "error | first 5 by (dur)", {scan: 1}, True),
-        ("topk_gated", "quota | last 3 by (dur)", {gscan: 1}, True),
+        ("topk_gated", "quota | last 3 by (dur)", {scan: 1}, True),
         # host pipes behind the narrow `quota`
-        ("uniq_rows", "quota | uniq by (app, lvl) with hits", {gscan: 1},
+        ("uniq_rows", "quota | uniq by (app, lvl) with hits", {scan: 1},
          False),
         ("where_stats", "quota | where dur:>1000 | stats by (app) count()",
-         {gscan: 1}, False),
+         {scan: 1}, False),
         ("copy_rows", "quota | copy app as app2 | rename lvl as level "
-                      "| delete user | limit 1000", {gscan: 1}, False),
+                      "| delete user | limit 1000", {scan: 1}, False),
     ]
+
+
+def filter_index_queries() -> tuple:
+    """The filter index phase's queries, (name, LogsQL, {kernel:
+    launches per device part}, the runner counter that must move):
+    on the main store, an AND leaf the maplets prune and an `or` and a
+    NOT leaf behind the split-block gate; on the sealed path store, the
+    pair's AND leaf (pruned, ungated) and two pairs under `or` (the
+    split-block gated pair)."""
+    scan, count = "match_scan", "stats_count_seg"
+    sbscan, sbpair = "match_scan_gated_sb", "match_pair_gated_sb"
+    main = [
+        ("fi_maplet", "quota | stats by (app) count()",
+         {scan: 1, count: 1}, "maplet_pruned_blocks"),
+        ("fi_sb_not", "error !quota | stats count()",
+         {scan: 1, sbscan: 1, count: 1}, "maplet_probes"),
+        ("fi_sb_or", '(quota or _stream:{app="app-7"}) | stats by (app) '
+                     'count()', {sbscan: 1, count: 1}, "maplet_probes"),
+    ]
+    path = [
+        ("fi_pair_and", PATH_QUERY + " | stats by (app) count()",
+         {"match_pair": 1, count: 1}, "maplet_pruned_blocks"),
+        ("fi_sb_pair_or", f'({PATH_QUERY} or ~"/api/v1/users.*ok") '
+                          f'| stats by (app) count()',
+         {sbpair: 2, count: 1}, "maplet_probes"),
+    ]
+    return main, path
+
+
+def filter_index_sidecars(storage) -> list:
+    """Each file part's filterindex.bin: its bytes, and that the port's
+    loader accepts it (a split-block plane and an xor aggregate for
+    `_msg`)."""
+    from victorialogs_tpu_torch.storage.filterindex import (
+        FILTERINDEX_FILENAME, part_index)
+    out = []
+    for pt in storage.partitions.values():
+        for p in pt.parts:
+            fi = part_index(p)
+            if fi is None or not (fi.has_sb("_msg") and fi.covers("_msg")):
+                fail(f"filter index: part {p.path} has no valid "
+                     f"{FILTERINDEX_FILENAME} with a `_msg` column")
+            out.append({"part": os.path.basename(p.path),
+                        "rows": p.num_rows, "blocks": p.num_blocks,
+                        "bytes": os.path.getsize(os.path.join(
+                            p.path, FILTERINDEX_FILENAME)),
+                        "columns": sorted(fi.cols)})
+    return out
+
+
+def filter_index_path(storage, tenants, runner, wrappers, flushes) -> dict:
+    """The filter index on the reopened main store and on a sealed copy
+    of the gated pair's path store: every part directory holds a
+    filterindex.bin that loads (`filter_index_sidecars`; the seconds
+    each flush sealed it from `flushes`), and each `filter_index_queries`
+    query, its launch counts zeroed first, equals the host executor and
+    the VL_FILTER_INDEX=v1 answer with each part on the card, launches
+    its listed kernels a part and no other, and moves its counter."""
+    import torch
+    from victorialogs_tpu_torch.cli.vlogsgenerator import (NS_PER_DAY,
+                                                           today_start_ns)
+    from victorialogs_tpu_torch.engine.searcher import run_query_collect
+    from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
+    t_phase = time.perf_counter()
+    fig = {"sidecars": filter_index_sidecars(storage),
+           "seals": [sl for f in flushes for sl in f["seals"]]}
+    log(f"filter index: sidecars {fig['sidecars']}; sealed at the flushes "
+        f"in {[round(sl['filter_index']['build_s'], 3) for sl in fig['seals']]}"
+        f" s")
+    pdir = tempfile.mkdtemp(prefix="vl_smoke_paths_")
+    atexit.register(shutil.rmtree, pdir, True)
+    pstore, pfig = store_by_route("rows", [path_rows(
+        PATH_ROWS, 12, today_start_ns(), NS_PER_DAY // 2)], path=pdir)
+    fig["path_store_seals"] = pfig["flushes"][0]["seals"]
+    fig["sidecars"] += filter_index_sidecars(pstore)
+    prunner = TorchBatchRunner(device="cuda")
+    main_qs, path_qs = filter_index_queries()
+    fig["queries"] = []
+    for st, r, qs in ((storage, runner, main_qs), (pstore, prunner, path_qs)):
+        parts = r.stats_counters
+        for name, q, kernels, moves in qs:
+            want = run_query_collect(st, tenants, q)
+            for w in wrappers:
+                w.launches = 0
+            before = launch_counts(wrappers, parts)
+            t0 = time.perf_counter()
+            got = run_query_collect(st, tenants, q, runner=r)
+            torch.cuda.synchronize()
+            t_dev = time.perf_counter() - t0
+            dev_parts = check_launches(f"filter index {name}", wrappers,
+                                       parts, before, kernels)
+            moved = parts[moves] - before[moves]
+            launched = {w.__name__: w.launches - before[w.__name__]
+                        for w in wrappers}
+            os.environ["VL_FILTER_INDEX"] = "v1"
+            try:
+                v1 = run_query_collect(st, tenants, q, runner=r)
+            finally:
+                del os.environ["VL_FILTER_INDEX"]
+            if got != want or v1 != want or not want or not moved:
+                fail(f"filter index {name}: {len(got)} rows on the card, "
+                     f"{len(v1)} with v1, {len(want)} from the host "
+                     f"executor; {moves} moved {moved}")
+            fig["queries"].append({
+                "name": name, "query": q, "rows_out": len(got),
+                "device_parts": dev_parts, "device_s": t_dev, moves: moved,
+                "launches": launched})
+            log(f"filter index {name}: {len(got)} rows from {dev_parts} "
+                f"device parts, equal to the host executor and to v1; "
+                f"{moves} {moved}; launches {fig['queries'][-1]['launches']}"
+                f"; {t_dev:.3f} s on the card (cold)")
+    prunner.close()
+    pstore.close()
+    fig["phase_s"] = time.perf_counter() - t_phase
+    return fig
+
+
+NEEDLE_ROWS = 2_000           # rows of the batch the part kill adds
+NEEDLE = "needle"             # a word no other part of the store holds
+
+
+def filter_index_kill(storage, tenants, start) -> dict:
+    """After the force merge: the merged part's filterindex.bin loads
+    (its seal's seconds from the datadb); a batch of NEEDLE_ROWS rows,
+    every 50th mentioning NEEDLE, is added and flushed with the batch
+    the result cache phase left (one new sealed part); a query for
+    NEEDLE through a fresh runner then kills the merged part by its xor
+    aggregate (`agg_pruned_parts` 1, the span's artifact
+    `xor_aggregate`), stages nothing of it, and equals the host
+    executor; then the same query, cold through a fresh runner with
+    VL_FILTER_INDEX=v1 (the merged part's bloom folds the only part
+    aggregate left), is timed beside it and equals it."""
+    import torch
+    from victorialogs_tpu_torch.cli.vlogsgenerator import generate
+    from victorialogs_tpu_torch.engine.searcher import run_query_collect
+    from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
+    from victorialogs_tpu_torch.obs import tracing
+    from victorialogs_tpu_torch.storage.log_rows import LogRows
+    t_phase = time.perf_counter()
+    (merged,) = [p for pt in storage.partitions.values() for p in pt.parts]
+    fig = {"merged": filter_index_sidecars(storage),
+           "merge_seal": [sl for sl in seals(storage) if sl["merge"]]}
+    lr = LogRows(stream_fields=INGEST_STREAM_FIELDS)
+    for k, (ts, fields) in enumerate(generate(
+            NEEDLE_ROWS, 19, start + 15 * 3600 * 10**9, 3600 * 10**9)):
+        if k % 50 == 0:
+            fields = [("_msg", f"{NEEDLE} {fields[0][1]}")] + fields[1:]
+        lr.add(tenants[0], ts, fields)
+    storage.must_add_rows(lr)
+    t0 = time.perf_counter()
+    storage.debug_flush()
+    fig["flush_s"] = time.perf_counter() - t0
+    fig["flush_seal"] = seals(storage)[-1]
+    fig["sidecars"] = filter_index_sidecars(storage)
+    q = f"{NEEDLE} | stats by (app) count()"
+    want = run_query_collect(storage, tenants, q)
+    runner = TorchBatchRunner(device="cuda")
+    root = tracing.make_root("query", query=q)
+    t0 = time.perf_counter()
+    with tracing.activate(root):
+        got = run_query_collect(storage, tenants, q, runner=runner)
+        torch.cuda.synchronize()
+    fig["device_s"] = time.perf_counter() - t0
+    c = runner.stats_counters
+    staged = runner.cache.part_uids()
+    trace = cold_counters(root)
+    tree = root.to_dict()
+    artifacts = set()
+
+    def walk(sp):
+        a = sp.get("attrs", {}).get("last_aggregate_prune_artifact")
+        if a:
+            artifacts.add(a)
+        for ch in sp.get("children", ()):
+            walk(ch)
+
+    walk(tree)
+    runner.close()
+    nrows = sum(int(r["count(*)"]) for r in want)
+    if got != want or nrows != NEEDLE_ROWS // 50 or \
+            c["agg_pruned_parts"] != 1 or merged.uid in staged or \
+            artifacts != {"xor_aggregate"} or c["device_parts"] != 1:
+        fail(f"filter index: the part kill: {got} against {want}, "
+             f"counters {c}, staged {staged} (merged part {merged.uid}), "
+             f"artifacts {artifacts}")
+    # the same cold query without the filter index: the part aggregate
+    # left is the merged part's bloom folds
+    os.environ["VL_FILTER_INDEX"] = "v1"
+    try:
+        runner = TorchBatchRunner(device="cuda")
+        root = tracing.make_root("query", query=q)
+        t0 = time.perf_counter()
+        with tracing.activate(root):
+            v1 = run_query_collect(storage, tenants, q, runner=runner)
+            torch.cuda.synchronize()
+        fig["v1_device_s"] = time.perf_counter() - t0
+        c1 = runner.stats_counters
+        fig["v1_counters"] = {k: c1[k] for k in ("agg_pruned_parts",
+                                                 "device_parts")}
+        fig["v1_trace"] = cold_counters(root)
+        runner.close()
+    finally:
+        del os.environ["VL_FILTER_INDEX"]
+    if v1 != want:
+        fail(f"filter index: the part kill: the v1 answer {v1} differs")
+    fig.update(rows=nrows, counters={k: c[k] for k in (
+        "agg_pruned_parts", "device_parts", "maplet_probes",
+        "maplet_pruned_blocks")}, trace=trace,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"filter index: the part kill: {q!r} killed the merged part of "
+        f"{merged.num_rows} rows by its xor aggregate (staged only "
+        f"{len(staged)} part), {nrows} rows counted, equal to the host "
+        f"executor; the flush of the new batch took {fig['flush_s']:.3f} s "
+        f"(sealed in {fig['flush_seal']['filter_index']['build_s']:.3f} s); "
+        f"cold on the card {fig['device_s']:.4f} s, trace {json.dumps(trace)}"
+        f"; the same cold query with VL_FILTER_INDEX=v1 "
+        f"{fig['v1_device_s']:.4f} s, {fig['v1_counters']}, trace "
+        f"{json.dumps(fig['v1_trace'])}")
+    return fig
 
 
 HITS_ARGS = {"query": "error", "step": "1h", "field": "app"}
@@ -2944,11 +3442,9 @@ def main() -> int:
     from victorialogs_tpu_torch.gpu import kernels as K
     from victorialogs_tpu_torch.gpu.batch import TorchBatchRunner
     from victorialogs_tpu_torch.gpu.pipeline import inflight_depth
-    from victorialogs_tpu_torch.gpu.bloom_device import (BloomGate,
-                                                         keep_rows_plain,
-                                                         pad_probe_args,
-                                                         plane_keep,
-                                                         plane_keep_plain)
+    from victorialogs_tpu_torch.gpu.bloom_device import (
+        BloomGate, SbGate, keep_rows_plain, pad_probe_args, pad_sb_idx,
+        plane_keep, plane_keep_plain, plane_keep_sb, plane_keep_sb_plain)
     from victorialogs_tpu_torch.gpu.stats_seg import (stats_count_seg,
                                                       stats_count_seg_plain,
                                                       stats_values,
@@ -2959,6 +3455,7 @@ def main() -> int:
     from victorialogs_tpu_torch.native import ingest as native_ingest
     from victorialogs_tpu_torch.server import vlinsert
     from victorialogs_tpu_torch.storage.filterbank import bloom_plane
+    from victorialogs_tpu_torch.storage.filterindex import part_index
     from victorialogs_tpu_torch.storage.log_rows import TenantID
     from victorialogs_tpu_torch.utils.hashing import hash_tokens
     dev = torch.device("cuda")
@@ -2996,6 +3493,8 @@ def main() -> int:
     check_value_edges(rng, dev, stats)
     check_pair(rng, dev, stats)
     check_fold(rng, dev, stats)
+    check_probe_sb(rng, dev, stats)
+    check_gated_sb(rng, dev, stats)
     torch.cuda.synchronize()
     log(f"kernels vs plain (bit-identical): {stats} in "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -3045,12 +3544,15 @@ def main() -> int:
     log(f"ingest routes: {time.perf_counter() - t0:.1f} s")
     # units the dispatch window submits before its first harvest
     window = inflight_depth()
-    # the kernels of the main path, then the standalone probe, which the
-    # planner never launches
-    main_path = (K.match_scan, K.match_scan_gated, stats_count_seg,
-                 stats_values, K.match_pair)
-    # the gated pair runs on a path of its own (below)
-    wrappers = main_path + (K.match_pair_gated, plane_keep)
+    # the kernels of the main path (its parts are sealed: the walk's
+    # maplets leave AND-path leaves nothing to gate), then the gated
+    # kernels, which run on paths of their own (below): the classic gates
+    # on the memory stores, the split-block gates in the filter index
+    # phase; and the standalone probes, which the planner never launches
+    main_path = (K.match_scan, stats_count_seg, stats_values, K.match_pair)
+    wrappers = main_path + (K.match_scan_gated, K.match_pair_gated,
+                            K.match_scan_gated_sb, K.match_pair_gated_sb,
+                            plane_keep, plane_keep_sb)
     parts = runner.stats_counters
 
     def timed(fn, runs: int) -> float:
@@ -3247,12 +3749,26 @@ def main() -> int:
     slaunches = {w.__name__: w.launches for w in wrappers}
     log(f"pipes' path launches: {slaunches}; runner parts: {parts}; "
         f"{time.perf_counter() - t_phase:.1f} s")
-    for w in (K.match_scan, K.match_scan_gated, stats_count_seg):
+    for w in (K.match_scan, stats_count_seg):
         if slaunches[w.__name__] == 0:
             fail(f"{w.__name__} was not launched on the pipes' path")
         launches[w.__name__] += slaunches[w.__name__]
     if parts["host_parts"]:
         fail(f"{parts['host_parts']} parts ran on the host")
+
+    # phase 3, the filter index on the sealed main store and a sealed
+    # path store: sidecars, maplet pruning, the split-block gates; its
+    # counts zeroed before each query
+    t_phase = time.perf_counter()
+    fi_fig = filter_index_path(storage, tenants, runner, wrappers,
+                               ingest_figs[0]["flushes"])
+    for qrow in fi_fig["queries"]:
+        for n, c in qrow["launches"].items():
+            launches[n] += c
+    for w in (K.match_scan_gated_sb, K.match_pair_gated_sb):
+        if launches[w.__name__] == 0:
+            fail(f"{w.__name__} was not launched on the filter index path")
+    log(f"filter index path: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 3, the gated pair's path: a store whose request paths lie in
     # a quarter of the streams, so the pair's bloom tokens rule out the
@@ -3285,7 +3801,7 @@ def main() -> int:
     if K.match_pair_gated.launches == 0 or not pparts["maybe_rows"]:
         fail(f"the gated pair's path: {K.match_pair_gated.launches} "
              f"launches, {pparts['maybe_rows']} maybe rows")
-    launches["match_pair_gated"] = K.match_pair_gated.launches
+    launches["match_pair_gated"] += K.match_pair_gated.launches
     log(f"gated pair path launches: "
         f"{ {w.__name__: w.launches for w in wrappers} }; runner parts: "
         f"{pparts}; {time.perf_counter() - t_phase:.1f} s")
@@ -3509,6 +4025,78 @@ def main() -> int:
     kern[-1]["rows"] = r
     kern[-1]["kept_rows"] = int(keep_rows_plain(gate, r).sum())
     kern[-1]["definite_rows"] = int(got_gp[0].sum())
+
+    # the split-block gate of the sealed part: `quota`'s probe of its
+    # `_msg` filters alone, behind the scan of `quota` and behind the
+    # pair `error.*timeout`
+    fi = part_index(part)
+    sbp = runner.stage_sb_plane(part, "_msg")
+    qh = hash_tokens(["quota"])
+    sbidx = runner.put(pad_sb_idx(fi.sb_probe_idx("_msg", qh), sbp.bp))
+    smask = runner.put(fi.sb_masks(qh).view(np.int32))
+    sb_args = (sbp.plane, sbidx, smask, sbp.nsb)
+    pks = plane_keep_sb(*sb_args)
+    lane8 = (sbidx.to(torch.int64)[:, :, None]
+             + torch.arange(8, device=dev)).reshape(sbidx.shape[0], -1)
+
+    def sb_gather_test():
+        """The yardstick: a gather of each token's 8 lanes and the
+        masked compare (every lane base of this input lies inside the
+        plane)."""
+        w = torch.gather(sbp.plane, 1, lane8).reshape(
+            sbidx.shape[0], -1, 8)
+        return ((w & smask) == smask).all(dim=2).all(dim=1) | (sbp.nsb == 0)
+
+    if not torch.equal(sb_gather_test(), pks):
+        fail("plane_keep_sb: the gather yardstick disagrees with the kernel")
+    add("plane_keep_sb", "plane_keep_sb_kernel",
+        "victorialogs_tpu_torch/csrc/probe.cu",
+        "victorialogs_tpu/tpu/bloom_device.py:255", pks,
+        plane_keep_sb_plain(*sb_args), lambda: plane_keep_sb(*sb_args),
+        lambda: plane_keep_sb_plain(*sb_args), sb_gather_test,
+        *sb_probe_work(*sb_args))
+    kern[-1]["kept_blocks"] = int(pks[:part.num_blocks].sum())
+    sbgate = SbGate(sbp.plane, sbp.nsb, sbidx, smask, gate.starts)
+    gated_sb_args = (*quota, False, sbgate)
+    gated_sb = K.match_scan_gated_sb(*gated_sb_args)[0]
+
+    def replaced_sb():
+        return plane_keep_sb(*sb_args).index_select(0, bid) & \
+            K.match_scan(*quota)
+
+    if not torch.equal(replaced_sb(), gated_sb):
+        fail("match_scan_gated_sb: the four launches it replaces disagree")
+    add("match_scan_gated_sb", "gated_scan_kernel",
+        "victorialogs_tpu_torch/csrc/scan.cu",
+        "victorialogs_tpu/tpu/bloom_device.py:255", gated_sb,
+        K.match_scan_gated_plain(*gated_sb_args)[0],
+        lambda: K.match_scan_gated_sb(*gated_sb_args),
+        lambda: K.match_scan_gated_plain(*gated_sb_args), None,
+        *gated_work(*gated_sb_args))
+    kern[-1]["replaced_ms"], kern[-1]["timing"]["replaced_ms"] = \
+        timed_ms(replaced_sb, 50, floor_ms=kern[-1]["bound_ms"])
+    kern[-1]["replaces_also"] = (
+        "the JAX planner's bloom_sb node (victorialogs_tpu/tpu/fused.py:"
+        "709-714): plane_keep_sb gathered to rows and ANDed with "
+        "match_scan_pallas (victorialogs_tpu/tpu/kernels_pallas.py:124)")
+    kern[-1]["rows"] = r
+    kern[-1]["kept_rows"] = int(keep_rows_plain(sbgate, r).sum())
+    gpair_sb_args = (*pair_args, sbgate)
+    got_gps = K.match_pair_gated_sb(*gpair_sb_args)
+    add("match_pair_gated_sb", "gated_pair_kernel",
+        "victorialogs_tpu_torch/csrc/scan.cu",
+        "victorialogs_tpu/tpu/bloom_device.py:255", torch.stack(got_gps),
+        torch.stack(K.match_pair_gated_plain(*gpair_sb_args)),
+        lambda: K.match_pair_gated_sb(*gpair_sb_args),
+        lambda: K.match_pair_gated_plain(*gpair_sb_args), None,
+        *gated_pair_work(ff.lanes, ff.lengths, sbgate))
+    kern[-1]["replaces_also"] = (
+        "match_ordered_pair_t (victorialogs_tpu/tpu/kernels32.py:243) "
+        "ANDed with the bloom_sb node (victorialogs_tpu/tpu/fused.py:"
+        "709-714)")
+    kern[-1]["rows"] = r
+    kern[-1]["kept_rows"] = int(keep_rows_plain(sbgate, r).sum())
+    kern[-1]["definite_rows"] = int(got_gps[0].sum())
     for k in kern:
         if k["name"] in pack_kern:
             k["at_pack"] = pack_kern[k["name"]]
@@ -3538,6 +4126,8 @@ def main() -> int:
     durable["force_merge"] = rcache.pop("force_merge")
     log(f"result cache phase (durable force merge included): "
         f"{time.perf_counter() - t_phase:.1f} s")
+    fi_fig["kill"] = filter_index_kill(storage, tenants, start)
+    log(f"filter index part kill: {fi_fig['kill']['phase_s']:.1f} s")
     runner.close()
     storage.close()
     log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -3550,7 +4140,7 @@ def main() -> int:
     print(json.dumps({"kernels": kern, "answers": [
         {k: r[k] for k in ANSWER_KEYS if k in r} for r in report],
         "packed": packed, "ingest": ingest_figs, "durable": durable,
-        "result_cache": rcache}))
+        "result_cache": rcache, "filter_index": fi_fig}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

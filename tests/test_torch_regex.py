@@ -444,7 +444,9 @@ ROW_QUERIES = [
     ('~"^error"', "maybe"),
     ('~"err\\\\w+"', "maybe"),
     ('~" quota "', "maybe"),                   # verify behind a bloom gate
-    ('~":nothere:x.*GET"', "card"),            # bloom rules out every block
+    # `nothere` lies in no block: each part's bloom folds kill it
+    # before any block is read (storage/filterbank.py), as in JAX
+    ('~":nothere:x.*GET"', "pruned"),
     ('~"onnect"', "card"),                     # pure literal
     ('~"quota"', "card"),
     ('~"GET|POST"', "host"),                   # no literal run
@@ -477,6 +479,9 @@ def _check_runner(runner, where: str) -> None:
     c = runner.stats_counters
     if where == "host":
         assert c["host_parts"] > 0 and c["device_parts"] == 0, c
+    elif where == "pruned":
+        assert c["agg_pruned_parts"] > 0 and \
+            c["host_parts"] == c["device_parts"] == 0, c
     else:
         assert c["device_parts"] > 0 and c["host_parts"] == 0, c
         assert c["maybe_rows"] > 0 or where == "card", c
@@ -591,7 +596,8 @@ def _programs(port, q):
     ('~" quota "', {"verify", "gscan"}),
     ('~"onnect"', {"scan"}),
     ("i(ERROR)", {"scan"}),
-    ('~":nothere:x.*GET"', {"false"}),
+    # killed by each part's bloom folds before a program is planned
+    ('~":nothere:x.*GET"', set()),
     ('~"dead.*line.*exceeded"', {"verify", "and", "scan"}),
     # on the path store: the tokens `api` and `v1` keep the blocks of
     # apps 0 and 1 only

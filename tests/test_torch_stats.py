@@ -446,7 +446,12 @@ def test_stats_query_matches_jax(stats_stores, monkeypatch, qi):
         jr.close()
         runner.close()
     assert runner.stats_counters["host_parts"] == 0
-    assert runner.stats_counters["device_parts"] >= 1
+    # a part whose bloom folds lack a required token is killed before
+    # it is read, as in JAX (storage/filterbank.py part_aggregate_prunes)
+    assert runner.stats_counters["device_parts"] >= 1 or \
+        runner.stats_counters["agg_pruned_parts"] >= 1
+    assert runner.stats_counters["agg_pruned_parts"] == \
+        jr.stats()["agg_pruned_parts"]
     for key, on_device in jr.reduced.items():
         if on_device:
             assert runner.reduced.get(key), (q, key)

@@ -1,5 +1,6 @@
 """The port's environment knobs: the dispatch window and small-part
-packing (gpu/pipeline.py) and the per-part result cache, with the JAX
+packing (gpu/pipeline.py), the per-part result cache and the sealed
+part's filter index, with the JAX
 package's names, defaults and parsing.
 
 - VL_INFLIGHT (4): dispatch units kept outstanding; 1 is the serial
@@ -15,6 +16,8 @@ package's names, defaults and parsing.
   (engine/standing/resultcache.py); 0 recomputes every part.
 - VL_RESULT_CACHE_MAX_BYTES (64 MiB): its byte budget; past it the
   least recently used entries are evicted.
+- VL_FILTER_INDEX (v2): `v1` neither writes nor reads a sealed part's
+  filter index (storage/filterindex); any other value is v2.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ DEFAULTS = {
     "VL_PACK_MAX_ROWS": None,
     "VL_RESULT_CACHE": "1",
     "VL_RESULT_CACHE_MAX_BYTES": str(64 << 20),
+    "VL_FILTER_INDEX": "v2",
 }
 
 

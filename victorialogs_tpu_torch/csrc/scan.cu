@@ -73,6 +73,14 @@
 // contiguous.  Rows whose value was truncated (`ovf`) are maybe rows and
 // are not scanned.
 //
+// On a sealed part the gate is the split-block probe of its filter
+// index (vl_match_scan_gated_sb, vl_match_pair_gated_sb; probe.cuh
+// SbProbe): the same kernels, templated on the probe, whose warp tests
+// a token's 8 lanes (one 32-byte sector) in 8 lanes of the warp, four
+// tokens a round.  They replace the JAX package's bloom_sb node
+// (tpu/bloom_device.py plane_keep_sb gathered to rows and ANDed with
+// the scan or the pair inside its fused program; not a Pallas kernel).
+//
 // The ordered pair (vl_match_pair) decides the regexp `A.*B` with
 // literal A and B (1-64 bytes each) per row.  It replaces the JAX
 // package's device function tpu/kernels32.py match_ordered_pair_t (not a
@@ -288,16 +296,22 @@ exact_kernel(const uint32_t* __restrict__ lanes,
 
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
-struct Gate {
-  vl::BloomProbe probe;
+// A gate: a probe (classic or split-block, probe.cuh), the block starts
+// and the block count.  Every gated kernel takes either.
+template <class Probe>
+struct GateT {
+  Probe probe;
   const int32_t* starts;             // [nb + 1], nondecreasing
   int nb;
 };
+using Gate = GateT<vl::BloomProbe>;
+using SbGate = GateT<vl::SbProbe>;
 
 // The block starts the row loop searches: copied to s when the gate has
 // at most kStartsCap - 1 blocks (the caller's next barrier publishes
 // them), else the global array.  The same in every thread.
-__device__ __forceinline__ const int32_t* stage_starts(const Gate& g,
+template <class G>
+__device__ __forceinline__ const int32_t* stage_starts(const G& g,
                                                        int32_t* s) {
   if (g.nb + 1 > kStartsCap) return g.starts;
   for (int i = threadIdx.x; i <= g.nb; i += blockDim.x) s[i] = g.starts[i];
@@ -324,7 +338,8 @@ __device__ __forceinline__ int block_of(const int32_t* s, int nb, int row) {
 // probe is safe.
 // The bloom keep of the lane's row, every lane of the warp together
 // (rows past r take the last row's block).
-__device__ __forceinline__ bool warp_keep(const Gate& g, const int32_t* st,
+template <class G>
+__device__ __forceinline__ bool warp_keep(const G& g, const int32_t* st,
                                           int r, int row, int lane) {
   const int b = block_of(st, g.nb, min(row, r - 1));
   bool keep = false;
@@ -339,8 +354,8 @@ __device__ __forceinline__ bool warp_keep(const Gate& g, const int32_t* st,
   return keep;
 }
 
-template <typename Hit>
-__device__ __forceinline__ void gated_rows(const Gate& g, const int32_t* st,
+template <class G, typename Hit>
+__device__ __forceinline__ void gated_rows(const G& g, const int32_t* st,
                                            int r, const bool* __restrict__ ovf,
                                            bool* __restrict__ out,
                                            bool* __restrict__ maybe, Hit hit) {
@@ -360,13 +375,13 @@ __device__ __forceinline__ void gated_rows(const Gate& g, const int32_t* st,
   }
 }
 
-template <int NW>
+template <int NW, class G>
 __global__ void __launch_bounds__(kThreads)
 gated_scan_kernel(const uint32_t* __restrict__ lanes,
                   const int32_t* __restrict__ lengths, int r,
                   const __grid_constant__ Pattern pat, int pat_len,
                   int need_start, int need_end, int fold,
-                  const __grid_constant__ Gate g,
+                  const __grid_constant__ G g,
                   const bool* __restrict__ ovf,
                   bool* __restrict__ out, bool* __restrict__ maybe) {
   __shared__ uint32_t tab[256 * NW];
@@ -388,11 +403,12 @@ gated_scan_kernel(const uint32_t* __restrict__ lanes,
   });
 }
 
+template <class G>
 __global__ void __launch_bounds__(kThreads)
 gated_exact_kernel(const uint32_t* __restrict__ lanes,
                    const int32_t* __restrict__ lengths, int r,
                    const __grid_constant__ Pattern pat, int pat_len,
-                   int prefix, int fold, const __grid_constant__ Gate g,
+                   int prefix, int fold, const __grid_constant__ G g,
                    const bool* __restrict__ ovf, bool* __restrict__ out,
                    bool* __restrict__ maybe) {
   __shared__ int32_t starts[kStartsCap];
@@ -486,11 +502,11 @@ __device__ __forceinline__ uint32_t pair_row(const uint32_t* __restrict__ lanes,
 // kStartsCap when gated.  Every lane of a warp runs every
 // iteration of the row loop (the bound is the warp's first row), so the
 // gate's probe and the row's warp-wide word count are safe.
-template <int NW, bool kGated>
+template <int NW, bool kGated, class G>
 __device__ __forceinline__ void pair_body(
     const uint32_t* __restrict__ lanes, const int32_t* __restrict__ lengths,
     int r, int nl, const Pattern& pa, int la, const Pattern& pb, int lb,
-    const Gate& g, const bool* __restrict__ ovf,
+    const G& g, const bool* __restrict__ ovf,
     bool* __restrict__ definite, bool* __restrict__ maybe, uint32_t* tab,
     int32_t* starts) {
   const int32_t* st = kGated ? stage_starts(g, starts) : nullptr;
@@ -536,22 +552,22 @@ match_pair_kernel(const uint32_t* __restrict__ lanes,
                   bool* __restrict__ maybe) {
   __shared__ uint32_t tab[256 * NW];
   const Gate none = {};
-  pair_body<NW, false>(lanes, lengths, r, nl, pa, la, pb, lb, none, ovf,
+  pair_body<NW, false, Gate>(lanes, lengths, r, nl, pa, la, pb, lb, none, ovf,
                        definite, maybe, tab, nullptr);
 }
 
-template <int NW>
+template <int NW, class G>
 __global__ void __launch_bounds__(kThreads)
 gated_pair_kernel(const uint32_t* __restrict__ lanes,
                   const int32_t* __restrict__ lengths, int r, int nl,
                   const __grid_constant__ Pattern pa, int la,
                   const __grid_constant__ Pattern pb, int lb,
-                  const __grid_constant__ Gate g,
+                  const __grid_constant__ G g,
                   const bool* __restrict__ ovf, bool* __restrict__ definite,
                   bool* __restrict__ maybe) {
   __shared__ uint32_t tab[256 * NW];
   __shared__ int32_t starts[kStartsCap];
-  pair_body<NW, true>(lanes, lengths, r, nl, pa, la, pb, lb, g, ovf,
+  pair_body<NW, true, G>(lanes, lengths, r, nl, pa, la, pb, lb, g, ovf,
                       definite, maybe, tab, starts);
 }
 
@@ -579,6 +595,71 @@ int pair_words(const void* pat_a, int len_a, const void* pat_b, int len_b) {
     if (static_cast<const unsigned char*>(pat_b)[j] == 0xFF) return 0;
   const int n = len_a + len_b;
   return n <= 29 ? 1 : n <= 61 ? 2 : 5;
+}
+
+template <class G>
+int launch_scan_gated(const void* lanes, const void* lengths, int r,
+                      const void* pattern, int pat_len, int mode,
+                      int starts_tok, int ends_tok, int fold, const G& g,
+                      const void* ovf, void* out, void* maybe, void* stream) {
+  if (pat_len <= 0 || pat_len > kMaxPattern || g.nb < 0 ||
+      (ovf == nullptr) != (maybe == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (r == 0) return 0;
+  const Pattern pat = make_pattern(pattern, pat_len);
+  const int blocks = grid_blocks(r);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* l = static_cast<const uint32_t*>(lanes);
+  const int32_t* n = static_cast<const int32_t*>(lengths);
+  const bool* ov = static_cast<const bool*>(ovf);
+  bool* o = static_cast<bool*>(out);
+  bool* m = static_cast<bool*>(maybe);
+  if (mode == 3 || mode == 4) {
+    gated_exact_kernel<G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, pat, pat_len, mode == 4, fold, g, ov, o, m);
+    return (int)cudaGetLastError();
+  }
+  const int ns = starts_tok && (mode == 0 || mode == 1);
+  const int ne = ends_tok && mode == 0;
+  if (pat_len <= 30)
+    gated_scan_kernel<1, G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
+  else if (pat_len <= 62)
+    gated_scan_kernel<2, G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
+  else
+    gated_scan_kernel<5, G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
+  return (int)cudaGetLastError();
+}
+
+template <class G>
+int launch_pair_gated(const void* lanes, const void* lengths, int r, int nl,
+                      const void* pat_a, int len_a, const void* pat_b,
+                      int len_b, const G& g, const void* ovf, void* definite,
+                      void* maybe, void* stream) {
+  const int nw = pair_words(pat_a, len_a, pat_b, len_b);
+  if (nw == 0 || nl < 0 || g.nb < 0) return (int)cudaErrorInvalidValue;
+  if (r == 0) return 0;
+  const Pattern pa = make_pattern(pat_a, len_a);
+  const Pattern pb = make_pattern(pat_b, len_b);
+  const int blocks = grid_blocks(r);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* l = static_cast<const uint32_t*>(lanes);
+  const int32_t* n = static_cast<const int32_t*>(lengths);
+  const bool* ov = static_cast<const bool*>(ovf);
+  bool* d = static_cast<bool*>(definite);
+  bool* m = static_cast<bool*>(maybe);
+  if (nw == 1)
+    gated_pair_kernel<1, G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, nl, pa, len_a, pb, len_b, g, ov, d, m);
+  else if (nw == 2)
+    gated_pair_kernel<2, G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, nl, pa, len_a, pb, len_b, g, ov, d, m);
+  else
+    gated_pair_kernel<5, G><<<blocks, kThreads, 0, st>>>(
+        l, n, r, nl, pa, len_a, pb, len_b, g, ov, d, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -614,53 +695,6 @@ extern "C" int vl_match_scan(const void* lanes, const void* lengths, int r,
   return (int)cudaGetLastError();
 }
 
-// The scan gated by a bloom leaf: definite[row] = hit & ~ovf & keep,
-// maybe[row] = ovf & keep with keep = the probe.cuh keep of the row's
-// block (block_of over starts[0..nblocks]); ovf and maybe may be null
-// together.  plane/nwords/idx/shift hold at least nblocks blocks.
-extern "C" int vl_match_scan_gated(
-    const void* lanes, const void* lengths, int r, const void* pattern,
-    int pat_len, int mode, int starts_tok, int ends_tok, int fold,
-    const void* plane, int wp, const void* nwords, const void* idx,
-    const void* shift, int p, const void* starts, int nblocks,
-    const void* ovf, void* out, void* maybe, void* stream) {
-  if (pat_len <= 0 || pat_len > kMaxPattern || nblocks < 0 || p < 0 ||
-      (ovf == nullptr) != (maybe == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (r == 0) return 0;
-  const Pattern pat = make_pattern(pattern, pat_len);
-  const int blocks = grid_blocks(r);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* l = static_cast<const uint32_t*>(lanes);
-  const int32_t* n = static_cast<const int32_t*>(lengths);
-  const Gate g = {{static_cast<const uint32_t*>(plane),
-                   static_cast<const int32_t*>(nwords),
-                   static_cast<const int32_t*>(idx),
-                   static_cast<const int32_t*>(shift), wp, p},
-                  static_cast<const int32_t*>(starts), nblocks};
-  const bool* ov = static_cast<const bool*>(ovf);
-  bool* o = static_cast<bool*>(out);
-  bool* m = static_cast<bool*>(maybe);
-  if (mode == 3 || mode == 4) {
-    gated_exact_kernel<<<blocks, kThreads, 0, st>>>(l, n, r, pat, pat_len,
-                                                    mode == 4, fold, g, ov,
-                                                    o, m);
-    return (int)cudaGetLastError();
-  }
-  const int ns = starts_tok && (mode == 0 || mode == 1);
-  const int ne = ends_tok && mode == 0;
-  if (pat_len <= 30)
-    gated_scan_kernel<1><<<blocks, kThreads, 0, st>>>(
-        l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
-  else if (pat_len <= 62)
-    gated_scan_kernel<2><<<blocks, kThreads, 0, st>>>(
-        l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
-  else
-    gated_scan_kernel<5><<<blocks, kThreads, 0, st>>>(
-        l, n, r, pat, pat_len, ns, ne, fold, g, ov, o, m);
-  return (int)cudaGetLastError();
-}
-
 // `A.*B` per row: definite[row] = ordered & ~newline & ~ovf and
 // maybe[row] = (ordered & newline) | ovf (see the note at the top); ovf
 // may be null.  nl lane words a row; A and B of 1-64 bytes, none of
@@ -693,6 +727,46 @@ extern "C" int vl_match_pair(const void* lanes, const void* lengths, int r,
   return (int)cudaGetLastError();
 }
 
+// The scan gated by a bloom leaf: definite[row] = hit & ~ovf & keep,
+// maybe[row] = ovf & keep with keep = the probe.cuh keep of the row's
+// block (block_of over starts[0..nblocks]); ovf and maybe may be null
+// together.  plane/nwords/idx/shift hold at least nblocks blocks.
+extern "C" int vl_match_scan_gated(
+    const void* lanes, const void* lengths, int r, const void* pattern,
+    int pat_len, int mode, int starts_tok, int ends_tok, int fold,
+    const void* plane, int wp, const void* nwords, const void* idx,
+    const void* shift, int p, const void* starts, int nblocks,
+    const void* ovf, void* out, void* maybe, void* stream) {
+  if (p < 0) return (int)cudaErrorInvalidValue;
+  const Gate g = {{static_cast<const uint32_t*>(plane),
+                   static_cast<const int32_t*>(nwords),
+                   static_cast<const int32_t*>(idx),
+                   static_cast<const int32_t*>(shift), wp, p},
+                  static_cast<const int32_t*>(starts), nblocks};
+  return launch_scan_gated(lanes, lengths, r, pattern, pat_len, mode,
+                           starts_tok, ends_tok, fold, g, ovf, out, maybe,
+                           stream);
+}
+
+// The same scan behind a split-block gate (probe.cuh SbProbe): plane
+// [>= nblocks, lp] lanes, nsb, sbidx [., t] and mask [t, 8].
+extern "C" int vl_match_scan_gated_sb(
+    const void* lanes, const void* lengths, int r, const void* pattern,
+    int pat_len, int mode, int starts_tok, int ends_tok, int fold,
+    const void* plane, int lp, const void* nsb, const void* sbidx,
+    const void* mask, int t, const void* starts, int nblocks,
+    const void* ovf, void* out, void* maybe, void* stream) {
+  if (t < 0) return (int)cudaErrorInvalidValue;
+  const SbGate g = {{static_cast<const uint32_t*>(plane),
+                     static_cast<const int32_t*>(nsb),
+                     static_cast<const int32_t*>(sbidx),
+                     static_cast<const uint32_t*>(mask), lp, t},
+                    static_cast<const int32_t*>(starts), nblocks};
+  return launch_scan_gated(lanes, lengths, r, pattern, pat_len, mode,
+                           starts_tok, ends_tok, fold, g, ovf, out, maybe,
+                           stream);
+}
+
 // The pair gated by a bloom leaf: definite[row] = keep & ordered &
 // ~newline & ~ovf, maybe[row] = keep & ((ordered & newline) | ovf), with
 // keep as vl_match_scan_gated's; ovf may be null.
@@ -702,32 +776,30 @@ extern "C" int vl_match_pair_gated(
     const void* nwords, const void* idx, const void* shift, int p,
     const void* starts, int nblocks, const void* ovf, void* definite,
     void* maybe, void* stream) {
-  const int nw = pair_words(pat_a, len_a, pat_b, len_b);
-  if (nw == 0 || nl < 0 || nblocks < 0 || p < 0)
-    return (int)cudaErrorInvalidValue;
-  if (r == 0) return 0;
-  const Pattern pa = make_pattern(pat_a, len_a);
-  const Pattern pb = make_pattern(pat_b, len_b);
-  const int blocks = grid_blocks(r);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* l = static_cast<const uint32_t*>(lanes);
-  const int32_t* n = static_cast<const int32_t*>(lengths);
+  if (p < 0) return (int)cudaErrorInvalidValue;
   const Gate g = {{static_cast<const uint32_t*>(plane),
                    static_cast<const int32_t*>(nwords),
                    static_cast<const int32_t*>(idx),
                    static_cast<const int32_t*>(shift), wp, p},
                   static_cast<const int32_t*>(starts), nblocks};
-  const bool* ov = static_cast<const bool*>(ovf);
-  bool* d = static_cast<bool*>(definite);
-  bool* m = static_cast<bool*>(maybe);
-  if (nw == 1)
-    gated_pair_kernel<1><<<blocks, kThreads, 0, st>>>(
-        l, n, r, nl, pa, len_a, pb, len_b, g, ov, d, m);
-  else if (nw == 2)
-    gated_pair_kernel<2><<<blocks, kThreads, 0, st>>>(
-        l, n, r, nl, pa, len_a, pb, len_b, g, ov, d, m);
-  else
-    gated_pair_kernel<5><<<blocks, kThreads, 0, st>>>(
-        l, n, r, nl, pa, len_a, pb, len_b, g, ov, d, m);
-  return (int)cudaGetLastError();
+  return launch_pair_gated(lanes, lengths, r, nl, pat_a, len_a, pat_b, len_b,
+                           g, ovf, definite, maybe, stream);
+}
+
+// The same pair behind a split-block gate, arguments as
+// vl_match_scan_gated_sb's.
+extern "C" int vl_match_pair_gated_sb(
+    const void* lanes, const void* lengths, int r, int nl, const void* pat_a,
+    int len_a, const void* pat_b, int len_b, const void* plane, int lp,
+    const void* nsb, const void* sbidx, const void* mask, int t,
+    const void* starts, int nblocks, const void* ovf, void* definite,
+    void* maybe, void* stream) {
+  if (t < 0) return (int)cudaErrorInvalidValue;
+  const SbGate g = {{static_cast<const uint32_t*>(plane),
+                     static_cast<const int32_t*>(nsb),
+                     static_cast<const int32_t*>(sbidx),
+                     static_cast<const uint32_t*>(mask), lp, t},
+                    static_cast<const int32_t*>(starts), nblocks};
+  return launch_pair_gated(lanes, lengths, r, nl, pat_a, len_a, pat_b, len_b,
+                           g, ovf, definite, maybe, stream);
 }

@@ -5,8 +5,12 @@ and `contains_any(...)` filters (`init_subqueries`: each must narrow
 its output to one column with `| fields x`), then extracts the query's
 time range, resolves AND-path `_stream:{...}` filters against each
 partition's stream index, selects each part's candidate blocks (time
-range, tenant, stream, AND-path `_stream_id:` ids), and feeds the
-matching rows through the pipe chain.
+range, tenant, stream, AND-path `_stream_id:` ids), prunes them by the
+AND-path leaves' required word tokens (`_prune`: a part whose aggregate
+lacks a token is killed whole; on a sealed part the filter index's
+maplets keep the exact candidate blocks), and feeds the matching rows
+through the pipe chain.  Both walks prune a part before the result
+cache is asked for it, as the JAX package does.
 
 The runner is the seam the device path plugs into.  Without one, every
 block is filtered on the host (`Filter.apply_to_block`), partition by
@@ -56,11 +60,14 @@ from ..gpu.stats_device import build_partial_states
 from ..logsql.duration import format_rfc3339
 from ..logsql.filters import (FilterAnd, FilterContainsAll,
                               FilterContainsAny, FilterIn, FilterNot,
-                              FilterOr, FilterStream, FilterStreamID)
+                              FilterOr, FilterStream, FilterStreamID,
+                              iter_and_path_token_leaves)
 from ..logsql.parser import MAX_TS, MIN_TS, Query, parse_query
 from ..logsql.pipes import (PipeStats, PipeWhere, SinkProcessor,
                             compute_needed_fields)
 from ..obs import tracing
+from ..storage.filterbank import (maplet_prune_candidates,
+                                  part_aggregate_prunes)
 from ..storage.log_rows import TenantID, parse_stream_id
 from .block_result import BlockResult
 from .block_search import BlockSearch
@@ -202,13 +209,47 @@ def _partition_parts(pt, q: Query, tenants: tuple, min_ts: int,
             yield part, bis, ctx
 
 
-def _walk_host(items, f, head, needed, qcache=None) -> None:
-    """The host executor's serial walk, block by block.  A part the
-    result cache holds replays its bitmaps in block order; a part walked
-    to its end stores its bitmaps."""
+def _prune(part, bis, leaves, counters=None):
+    """A part's candidate blocks after the AND-path token leaves'
+    pruning, in the JAX package's order: the part aggregate (the xor
+    aggregate of a sealed part, else the bloom folds; built only when
+    the candidates cover a quarter of the part) kills the part, else
+    the sealed part's maplets drop blocks.  [] when the part is killed
+    or every block dropped.  `counters` (a runner's stats_counters)
+    counts `agg_pruned_parts` and `maplet_pruned_blocks`."""
+    if not leaves:
+        return bis
+    if part_aggregate_prunes(part, leaves,
+                             build=len(bis) * 4 >= part.num_blocks):
+        if counters is not None:
+            counters["agg_pruned_parts"] += 1
+        return []
+    kept = maplet_prune_candidates(part, leaves, bis)
+    if counters is not None and len(kept) != len(bis):
+        counters["maplet_pruned_blocks"] += len(bis) - len(kept)
+    return kept
+
+
+def _pruned_parts(items, leaves, counters):
+    """The device walk's part stream after `_prune`: a part is pruned
+    before the result cache's probe, its staging and its unit."""
+    for part, bis, ctx in items:
+        bis = _prune(part, bis, leaves, counters)
+        if bis:
+            yield part, bis, ctx
+
+
+def _walk_host(items, f, head, needed, qcache=None, leaves=()) -> None:
+    """The host executor's serial walk, block by block.  Each part's
+    candidates are pruned (`_prune`) before the result cache's probe; a
+    part the cache holds replays its bitmaps in block order; a part
+    walked to its end stores its bitmaps."""
     sp = tracing.current_span()
     for part, bis, ctx in items:
         sp.add("blocks_candidate", len(bis))
+        bis = _prune(part, bis, leaves)
+        if not bis:
+            continue
         cached = None
         if qcache is not None and qcache.kind == "bms":
             e = qcache.probe(part, bis)
@@ -266,21 +307,27 @@ def run_query(storage, tenants, q: Query | str, write_block,
                                   max_ts)
     pts = storage.select_partitions(min_ts, max_ts)
     qsp = tracing.current_span()
+    # the AND-path leaves that prune parts and blocks, hashed once
+    leaves = list(iter_and_path_token_leaves(q.filter))
 
     def parts(pt):
         return _partition_parts(pt, q, tenants, min_ts, max_ts, qsp)
 
     if runner is None:
         _walk_host((it for pt in pts for it in parts(pt)), q.filter, head,
-                   needed, qcache)
+                   needed, qcache, leaves)
     else:
         def absorb(partials):
             absorb_stats_partials(head, q.pipes[0], spec, partials)
 
+        def pruned(items):
+            return _pruned_parts(items, leaves, runner.stats_counters)
+
         # one dispatch window across every selected partition, set up
         # lazily; VL_CROSS_PARTITION=0 drains it at each day boundary
-        streams = [(it for pt in pts for it in parts(pt))] \
-            if cross_partition_enabled() else [parts(pt) for pt in pts]
+        streams = [pruned(it for pt in pts for it in parts(pt))] \
+            if cross_partition_enabled() else \
+            [pruned(parts(pt)) for pt in pts]
         for items in streams:
             if head.is_done():
                 break

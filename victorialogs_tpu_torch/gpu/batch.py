@@ -53,8 +53,9 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..logsql import filters as F
+from ..storage.filterindex import sb_plane_for_staging
 from ..storage.values_encoder import VT_DICT, VT_STRING
-from .bloom_device import block_starts, stage_bloom_plane
+from .bloom_device import block_starts, stage_bloom_plane, stage_sb_plane
 from .fused import (TOPK_SCORE_MAX, _NoFuse, _Planner, device_plan,
                     eval_node, part_layout, residue_partials, settle_maybe,
                     stage_layout_column, topk_rows, topk_rows_packed)
@@ -231,7 +232,9 @@ class TorchBatchRunner:
                                "topk_declines": 0, "topk_rows": 0,
                                "units": 0, "packed_units": 0,
                                "packed_parts": 0, "inflight_hwm": 0,
-                               "result_cache_units": 0}
+                               "result_cache_units": 0,
+                               "agg_pruned_parts": 0, "maplet_probes": 0,
+                               "maplet_pruned_blocks": 0}
         self._packs: OrderedDict = OrderedDict()
         self._pack_ties: set = set()
 
@@ -299,6 +302,14 @@ class TorchBatchRunner:
     def stage_bloom_plane(self, part, field: str, plb):
         return self._cached((part.uid, "bloom", field),
                             lambda: stage_bloom_plane(plb, self.device))
+
+    def stage_sb_plane(self, part, field: str):
+        """The sealed part column's split-block plane on the device,
+        staged once (the part's filter index has one for the column)."""
+        def build():
+            plane, nsb = sb_plane_for_staging(part, field)
+            return stage_sb_plane(plane, nsb, self.device)
+        return self._cached((part.uid, "sb", field), build)
 
     def stage_multibyte(self, part, field: str, layout):
         """bool[RLp] rows of `field` holding a byte >= 0x80 (the maybe

@@ -11,9 +11,10 @@ so an edited kernel rebuilds and an unchanged one loads at once.
 them; what nvcc printed for each source (ptxas's registers, spills and
 shared memory per kernel, from `-Xptxas -v`) is kept in `BUILD_LOGS`.
 A source may export several entry points (`scan.cu`: the scan, the
-bloom-gated scan, the ordered pair and the bloom-gated pair; `count.cu`:
-the count and the value reduction); `kernel(name)` loads one by its name
-in `SIGNATURES`.
+bloom-gated scan, the ordered pair and the bloom-gated pair, each gated
+one by a classic or a split-block gate; `count.cu`: the count and the
+value reduction; `probe.cu`: both probes alone); `kernel(name)` loads
+one by its name in `SIGNATURES`.
 """
 
 from __future__ import annotations
@@ -52,6 +53,14 @@ SIGNATURES = {
     "values": ("count", "vl_stats_values",
                (_P, _I, _P, _P, _I, _I, _P, _I, _IP, _P)),
     "probe": ("probe", "vl_plane_keep", (_P, _I, _I, _P, _P, _I, _P, _P, _P)),
+    "probe_sb": ("probe", "vl_plane_keep_sb",
+                 (_P, _I, _I, _P, _P, _I, _P, _P, _P)),
+    "scan_gated_sb": ("scan", "vl_match_scan_gated_sb",
+                      (_P, _P, _I, _P, _I, _I, _I, _I, _I,
+                       _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P)),
+    "pair_gated_sb": ("scan", "vl_match_pair_gated_sb",
+                      (_P, _P, _I, _I, _P, _I, _P, _I,
+                       _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P)),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _e, _a in SIGNATURES.values()))
 

@@ -23,7 +23,13 @@ part and emits a small program plus the device tensors it reads:
   JAX planner ANDs the pair with its bloom node).  When the tokens rule
   out every block the leaf folds to false with no scan at all.  An
   `ovfmaybe` leaf is not gated: its rows are maybe rows, which the host
-  settles with the filter's own predicate anyway;
+  settles with the filter's own predicate anyway.  On a sealed part
+  with a filter index the keep-mask comes from the exact maplet, and
+  the gate is the split-block probe: `gscan_sb` and `gpair_sb` nodes
+  (kernels.match_scan_gated_sb, match_pair_gated_sb; the JAX planner's
+  `bloom_sb` node).  The walk has already dropped the blocks an
+  AND-path leaf rules out, so there such a leaf keeps every candidate
+  and goes ungated; a leaf under `or` or NOT keeps its gate;
 - constant subtrees fold away.
 
 `eval_node` evaluates the program three-valued: every node yields
@@ -56,10 +62,11 @@ from ..logsql import filters as F
 from ..logsql.matchers import is_word_char, parse_number
 from ..logsql.stats_funcs import format_number
 from ..storage.filterbank import bloom_keep_mask, bloom_plane
+from ..storage.filterindex import part_index
 from ..storage.values_encoder import VT_DICT, VT_STRING
 from ..utils.hashing import cached_token_hashes
 from . import kernels as K
-from .bloom_device import BloomGate, pad_probe_args
+from .bloom_device import BloomGate, SbGate, pad_probe_args, pad_sb_idx
 from .layout import row_width_bucket, to_fixed_width, to_lanes32
 from .stats_device import SYNTH_EMPTY, SYNTH_LEN
 
@@ -435,6 +442,9 @@ class _Planner:
             hashes = cached_token_hashes(plan.filter, plan.bloom_tokens)
             bis = list(self.bss)
             keep = bloom_keep_mask(self.part, plan.field, hashes, bis)
+            if part_index(self.part) is not None:
+                # the maplet, not a bloom plane, answered the probe
+                self.runner.stats_counters["maplet_probes"] += 1
             if not keep.any():
                 return ("false",)
         ff, ri, li, oi = self.field_slot(plan.field)
@@ -445,7 +455,10 @@ class _Planner:
             self.has_maybe = True
             node = ("pair", ri, li, oi, a, b)
             gate = self._leaf_gate(plan, keep, hashes)
-            return node if gate is None else ("gpair", *node[1:], *gate)
+            if gate is None:
+                return node
+            return (("gpair" if gate[0] == "bloom" else "gpair_sb"),
+                    *node[1:], *gate[1:])
         mi = -1
         if any(op.fold for op in plan.ops):
             mb = self.runner.stage_multibyte(self.part, plan.field,
@@ -472,7 +485,8 @@ class _Planner:
                     op.mode, op.starts_tok, op.ends_tok, op.fold)
             if gate is not None:
                 # one gated scan rules the leaf's blocks out for all
-                node = ("gscan", *node[1:], *gate)
+                node = (("gscan" if gate[0] == "bloom" else "gscan_sb"),
+                        *node[1:], *gate[1:])
                 gate = None
             kids.append(node)
         res = _combine(plan.combine, kids)
@@ -482,12 +496,23 @@ class _Planner:
         return ("verify", res)
 
     def _leaf_gate(self, plan: LeafPlan, keep, hashes):
-        """Arg slots (plane, nwords, idx, shift, block starts) of the
-        leaf's bloom gate when its bloom keeps some of the candidate
-        blocks but not all (the JAX planner's `_with_bloom`), else None;
-        None too without a staged plane."""
+        """The leaf's gate when its keep-mask keeps some of the candidate
+        blocks but not all (the JAX planner's `_with_bloom`), else None:
+        ("sb", plane, nsb, sbidx, mask, block starts) arg slots on a
+        sealed part whose column has split-block filters (the JAX
+        planner's `_bloom_sb_node`), else ("bloom", plane, nwords, idx,
+        shift, block starts); None without a plane."""
         if keep is None or keep.all():
             return None
+        fi = part_index(self.part)
+        if fi is not None and fi.has_sb(plan.field):
+            sp = self.runner.stage_sb_plane(self.part, plan.field)
+            sbidx = self.runner.put(pad_sb_idx(
+                fi.sb_probe_idx(plan.field, hashes), sp.bp))
+            mask = self.runner.put(fi.sb_masks(hashes).view(np.int32))
+            starts = self.runner.stage_block_starts(self.part, self.layout)
+            return ("sb", self.arg(sp.plane), self.arg(sp.nsb),
+                    self.arg(sbidx), self.arg(mask), self.arg(starts))
         plb = bloom_plane(self.part, plan.field)
         if plb is None:
             return None
@@ -495,7 +520,7 @@ class _Planner:
         idx, shift = plb.block_probe_args(hashes)
         idx, shift = pad_probe_args(idx, shift, sp.bp)
         starts = self.runner.stage_block_starts(self.part, self.layout)
-        return (self.arg(sp.plane), self.arg(sp.nwords),
+        return ("bloom", self.arg(sp.plane), self.arg(sp.nwords),
                 self.arg(self.runner.put(idx)),
                 self.arg(self.runner.put(shift)), self.arg(starts))
 
@@ -571,13 +596,16 @@ def eval_node(node, args, rlp: int, device):
         if may is None:
             return d, None
         return d & ~may, may
-    if kind == "gscan":
-        (_, ri, li, oi, mi, pat, mode, st, et, fold, pi, nwi, ii, si,
-         sti) = node
-        gate = BloomGate(args[pi], args[nwi], args[ii], args[si], args[sti])
-        d, may = K.match_scan_gated(args[ri], args[li], pat, mode, st, et,
-                                    fold, gate,
-                                    args[oi] if oi >= 0 else None)
+    if kind in ("gscan", "gscan_sb"):
+        # the gate's slots: a BloomGate's (plane, nwords, idx, shift) or
+        # an SbGate's (plane, nsb, sbidx, mask), then the block starts
+        _, ri, li, oi, mi, pat, mode, st, et, fold, *g = node
+        if kind == "gscan":
+            scan, gate = K.match_scan_gated, BloomGate(*(args[i] for i in g))
+        else:
+            scan, gate = K.match_scan_gated_sb, SbGate(*(args[i] for i in g))
+        d, may = scan(args[ri], args[li], pat, mode, st, et, fold, gate,
+                      args[oi] if oi >= 0 else None)
         if mi < 0:
             return d, may
         mb = args[mi]
@@ -586,11 +614,14 @@ def eval_node(node, args, rlp: int, device):
         _, ri, li, oi, a, b = node
         return K.match_pair(args[ri], args[li], a, b,
                             args[oi] if oi >= 0 else None)
-    if kind == "gpair":
-        _, ri, li, oi, a, b, pi, nwi, ii, si, sti = node
-        gate = BloomGate(args[pi], args[nwi], args[ii], args[si], args[sti])
-        return K.match_pair_gated(args[ri], args[li], a, b, gate,
-                                  args[oi] if oi >= 0 else None)
+    if kind in ("gpair", "gpair_sb"):
+        _, ri, li, oi, a, b, *g = node
+        if kind == "gpair":
+            pair, gate = K.match_pair_gated, BloomGate(*(args[i] for i in g))
+        else:
+            pair, gate = K.match_pair_gated_sb, SbGate(*(args[i] for i in g))
+        return pair(args[ri], args[li], a, b, gate,
+                    args[oi] if oi >= 0 else None)
     if kind == "verify":
         d, m = eval_node(node[1], args, rlp, device)
         return torch.zeros_like(d), d if m is None else d | m

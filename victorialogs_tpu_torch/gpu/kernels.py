@@ -24,6 +24,12 @@ staging (csrc/scan.cu `vl_match_pair`; plain version
 kernels32.match_ordered_pair_t.  `match_pair_gated` is the same pair
 behind a bloom gate in one launch, as `match_scan_gated` is the scan's
 (`vl_match_pair_gated`; plain version `match_pair_gated_plain`).
+On a sealed part with a filter index the gate is an `SbGate`, the
+split-block probe (bloom_device.py): `match_scan_gated_sb` and
+`match_pair_gated_sb` launch the same kernels with that probe
+(`vl_match_scan_gated_sb`, `vl_match_pair_gated_sb`); their plain
+versions are the same `match_scan_gated_plain` and
+`match_pair_gated_plain`, which take either gate.
 
 Also here: `combine_ids` (row-major combined bucket ids) and
 `packbits`/`unpackbits` pinned to numpy's bit order (first element in
@@ -40,7 +46,7 @@ import torch
 
 from ..logsql.filters import (MODE_EXACT, MODE_EXACT_PREFIX,  # noqa: F401
                              MODE_PHRASE, MODE_PREFIX, MODE_SUBSTRING)
-from .bloom_device import BloomGate, keep_rows_plain
+from .bloom_device import SB_PROBE_LANES, BloomGate, SbGate, keep_rows_plain
 from .build import check, check_cuda, kernel, stream_ptr
 
 MAX_PATTERN_LEN = 64   # longer patterns stay on the host path
@@ -153,18 +159,62 @@ def _gate_args(gate: BloomGate) -> tuple:
             gate.starts.data_ptr(), nb)
 
 
+def _sb_gate_args(gate: SbGate) -> tuple:
+    """The checked split-block gate arguments, in the places of
+    `_gate_args`': plane, its lane count, split blocks a block, lane
+    bases, token masks, tokens, block starts and the block count."""
+    check_cuda(gate.plane, torch.int32, 2, "plane")
+    bp, lp = gate.plane.shape
+    t = gate.sbidx.shape[1]
+    check_cuda(gate.nsb, torch.int32, 1, "nsb", (bp,))
+    check_cuda(gate.sbidx, torch.int32, 2, "sbidx", (bp, t))
+    check_cuda(gate.mask, torch.int32, 2, "mask", (t, SB_PROBE_LANES))
+    check_cuda(gate.starts, torch.int32, 1, "starts")
+    nb = gate.starts.numel() - 1
+    if not 0 <= nb <= bp:
+        raise ValueError(f"starts: {nb + 1} entries for a plane of {bp} "
+                         f"blocks")
+    return (gate.plane.data_ptr(), lp, gate.nsb.data_ptr(),
+            gate.sbidx.data_ptr(), gate.mask.data_ptr(), t,
+            gate.starts.data_ptr(), nb)
+
+
 def match_scan_gated_plain(lanes: torch.Tensor, lengths: torch.Tensor,
                            pattern: bytes, mode: int, starts_tok: bool,
-                           ends_tok: bool, fold: bool, gate: BloomGate,
+                           ends_tok: bool, fold: bool, gate,
                            ovf: torch.Tensor | None = None):
     """Plain PyTorch: the probe's keep-mask expanded to rows through the
-    block starts, ANDed with the plain scan; see `match_scan_gated`."""
+    block starts, ANDed with the plain scan; see `match_scan_gated`.
+    `gate` is a BloomGate or an SbGate."""
     rows = keep_rows_plain(gate, lanes.shape[1])
     hit = match_scan_plain(lanes, lengths, pattern, mode, starts_tok,
                            ends_tok, fold) & rows
     if ovf is None:
         return hit, None
     return hit & ~ovf, ovf & rows
+
+
+def _launch_scan_gated(name: str, gargs: tuple, lanes, lengths,
+                       pattern: bytes, mode: int, starts_tok: bool,
+                       ends_tok: bool, fold: bool, ovf):
+    """One launch of the gated scan entry `name` with checked gate
+    arguments `gargs` (`_gate_args` or `_sb_gate_args`): (definite,
+    maybe)."""
+    check_cuda(lanes, torch.int32, 2, "lanes")
+    r = lanes.shape[1]
+    check_cuda(lengths, torch.int32, 1, "lengths", (r,))
+    if ovf is not None:
+        check_cuda(ovf, torch.bool, 1, "ovf", (r,))
+    out = torch.empty(r, dtype=torch.bool, device=lanes.device)
+    maybe = None if ovf is None else torch.empty_like(out)
+    buf = ctypes.create_string_buffer(pattern, len(pattern))
+    check(kernel(name)(
+        lanes.data_ptr(), lengths.data_ptr(), r, buf, len(pattern), mode,
+        int(starts_tok), int(ends_tok), int(fold), *gargs,
+        None if ovf is None else ovf.data_ptr(), out.data_ptr(),
+        None if maybe is None else maybe.data_ptr(), stream_ptr(lanes)),
+        name)
+    return out, maybe
 
 
 def match_scan_gated(lanes: torch.Tensor, lengths: torch.Tensor,
@@ -180,26 +230,36 @@ def match_scan_gated(lanes: torch.Tensor, lengths: torch.Tensor,
     if lanes.device.type == "cpu":
         return match_scan_gated_plain(lanes, lengths, pattern, mode,
                                       starts_tok, ends_tok, fold, gate, ovf)
-    check_cuda(lanes, torch.int32, 2, "lanes")
-    r = lanes.shape[1]
-    check_cuda(lengths, torch.int32, 1, "lengths", (r,))
-    gargs = _gate_args(gate)
-    if ovf is not None:
-        check_cuda(ovf, torch.bool, 1, "ovf", (r,))
-    out = torch.empty(r, dtype=torch.bool, device=lanes.device)
-    maybe = None if ovf is None else torch.empty_like(out)
-    buf = ctypes.create_string_buffer(pattern, len(pattern))
-    check(kernel("scan_gated")(
-        lanes.data_ptr(), lengths.data_ptr(), r, buf, len(pattern), mode,
-        int(starts_tok), int(ends_tok), int(fold), *gargs,
-        None if ovf is None else ovf.data_ptr(), out.data_ptr(),
-        None if maybe is None else maybe.data_ptr(), stream_ptr(lanes)),
-        "scan_gated")
+    got = _launch_scan_gated("scan_gated", _gate_args(gate), lanes, lengths,
+                             pattern, mode, starts_tok, ends_tok, fold, ovf)
     match_scan_gated.launches += 1
-    return out, maybe
+    return got
 
 
 match_scan_gated.launches = 0
+
+
+def match_scan_gated_sb(lanes: torch.Tensor, lengths: torch.Tensor,
+                        pattern: bytes, mode: int, starts_tok: bool,
+                        ends_tok: bool, fold: bool, gate: SbGate,
+                        ovf: torch.Tensor | None = None):
+    """`match_scan_gated` behind a split-block gate: keep(row) is the
+    SbGate's probe of the row's block (csrc/scan.cu
+    `vl_match_scan_gated_sb`, the same kernels with the split-block
+    probe)."""
+    if not 0 < len(pattern) <= 128:
+        raise ValueError(f"pattern length {len(pattern)} not in 1..128")
+    if lanes.device.type == "cpu":
+        return match_scan_gated_plain(lanes, lengths, pattern, mode,
+                                      starts_tok, ends_tok, fold, gate, ovf)
+    got = _launch_scan_gated("scan_gated_sb", _sb_gate_args(gate), lanes,
+                             lengths, pattern, mode, starts_tok, ends_tok,
+                             fold, ovf)
+    match_scan_gated_sb.launches += 1
+    return got
+
+
+match_scan_gated_sb.launches = 0
 
 
 def match_pair_plain(lanes: torch.Tensor, lengths: torch.Tensor,
@@ -286,11 +346,11 @@ match_pair.launches = 0
 
 
 def match_pair_gated_plain(lanes: torch.Tensor, lengths: torch.Tensor,
-                           pat_a: bytes, pat_b: bytes, gate: BloomGate,
+                           pat_a: bytes, pat_b: bytes, gate,
                            ovf: torch.Tensor | None = None):
     """Plain PyTorch: the probe's keep-mask expanded to rows through the
     block starts, ANDed with both outputs of the plain pair; see
-    `match_pair_gated`."""
+    `match_pair_gated`.  `gate` is a BloomGate or an SbGate."""
     rows = keep_rows_plain(gate, lanes.shape[1])
     d, m = match_pair_plain(lanes, lengths, pat_a, pat_b, ovf)
     return d & rows, m & rows
@@ -317,6 +377,27 @@ def match_pair_gated(lanes: torch.Tensor, lengths: torch.Tensor,
 
 
 match_pair_gated.launches = 0
+
+
+def match_pair_gated_sb(lanes: torch.Tensor, lengths: torch.Tensor,
+                        pat_a: bytes, pat_b: bytes, gate: SbGate,
+                        ovf: torch.Tensor | None = None):
+    """`match_pair_gated` behind a split-block gate (csrc/scan.cu
+    `vl_match_pair_gated_sb`)."""
+    _check_pair_patterns(pat_a, pat_b)
+    if lanes.device.type == "cpu":
+        return match_pair_gated_plain(lanes, lengths, pat_a, pat_b, gate,
+                                      ovf)
+    args, definite, maybe = _pair_args(lanes, lengths, pat_a, pat_b, ovf)
+    check(kernel("pair_gated_sb")(
+        *args, *_sb_gate_args(gate), None if ovf is None else ovf.data_ptr(),
+        definite.data_ptr(), maybe.data_ptr(), stream_ptr(lanes)),
+        "pair_gated_sb")
+    match_pair_gated_sb.launches += 1
+    return definite, maybe
+
+
+match_pair_gated_sb.launches = 0
 
 
 def combine_ids(ids_tuple, strides) -> torch.Tensor:

@@ -32,7 +32,9 @@ units and keeps several of them on the card at once:
 
 3. **Result-cache units.**  With the per-part result cache on
    (engine/standing/resultcache.py), each (part, candidate blocks) is
-   probed before grouping.  A hit becomes a unit of its own (its
+   probed before grouping, after the searcher's part and maplet
+   pruning (engine/searcher.py `_prune`) left the part its blocks.  A
+   hit becomes a unit of its own (its
    `_CacheHit` lies above every pack's row cap, so it never joins a
    pack) that holds the cached partials or bitmaps: it is never staged
    nor submitted, launches nothing, and rides the window in submission

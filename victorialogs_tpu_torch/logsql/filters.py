@@ -79,6 +79,21 @@ def canonical_field(field: str) -> str:
     return field or "_msg"
 
 
+def iter_and_path_token_leaves(f):
+    """(field, tokens, leaf) of each leaf on the top-level AND path with
+    required word tokens: where one of its tokens is in no block of a
+    part, the query matches nothing there (storage/filterbank.py
+    part_aggregate_prunes, maplet_prune_candidates).  Only FilterAnd is
+    recursed: under OR or NOT an empty leaf says nothing of the tree."""
+    if isinstance(f, FilterAnd):
+        for sub in f.filters:
+            yield from iter_and_path_token_leaves(sub)
+    elif isinstance(f, _ValuePredFilter):
+        toks = f._tokens()
+        if toks:
+            yield canonical_field(f.field), toks, f
+
+
 class Filter:
     def apply_to_block(self, bs: BlockSearch, bm: np.ndarray) -> None:
         raise NotImplementedError

@@ -86,9 +86,11 @@ def column_token_hashes(col: EncodedColumn, nrows: int):
 
 
 def build_column_bloom(col: EncodedColumn, nrows: int) -> None:
-    """Attach the token bloom filter (none for const/dict columns)."""
+    """Attach the token bloom filter and keep its token hashes (none
+    for const/dict columns)."""
     hashes = column_token_hashes(col, nrows)
     if hashes is not None:
+        col.token_hashes = hashes
         col.bloom = bloom_build(hashes)
 
 

@@ -214,8 +214,10 @@ def _try_dict_arena(name: str, sub: np.ndarray, offs: np.ndarray,
 def _typed_column_bloom(col: EncodedColumn, arena) -> None:
     """The bloom of a typed column from its arena before encoding: the
     encoding round-trips exactly, so these are its values and the
-    distinct-token-hash set is the one build_column_bloom would take."""
-    col.bloom = bloom_build(ingest.unique_token_hashes(*arena))
+    distinct-token-hash set is the one build_column_bloom would take
+    (kept on the column for the filter index, as there)."""
+    col.token_hashes = ingest.unique_token_hashes(*arena)
+    col.bloom = bloom_build(col.token_hashes)
 
 
 def _chunk_block(sid, ts: np.ndarray, chunk_cols: list,

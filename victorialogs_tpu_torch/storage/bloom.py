@@ -61,6 +61,12 @@ def bloom_contains_all(words: np.ndarray, token_hashes: np.ndarray) -> bool:
     return bool(ok.all())
 
 
+def bloom_probe_positions(token_hashes: np.ndarray, nwords: int) -> np.ndarray:
+    """Probe positions of one filter size -> uint64[T, 6] (the
+    split-block filters' in-block positions are those of 4 words)."""
+    return bloom_probe_positions_multi(token_hashes, (nwords,))[0]
+
+
 def bloom_probe_positions_multi(token_hashes: np.ndarray,
                                 nwords_list) -> np.ndarray:
     """Probe positions for SEVERAL filter sizes at once -> uint64[S, T, 6].

@@ -49,9 +49,17 @@ class DataDB:
         self.big_parts: list = []
         self._next_part_id = 0
         self.merges_done = 0
+        # the filter index figures of each part this datadb sealed, in
+        # order ({"merge": bool, "rows", "blocks", "filter_index"})
+        self.seals: list = []
         if path is not None:
             os.makedirs(path, exist_ok=True)
             self._open_existing()
+
+    def _sealed(self, meta: dict, merge: bool = False) -> None:
+        self.seals.append({"merge": merge, "rows": meta["rows"],
+                           "blocks": meta["blocks"],
+                           "filter_index": meta.get("filter_index")})
 
     # ---- open ----
 
@@ -136,7 +144,7 @@ class DataDB:
             return
         out = self._new_part_path()
         try:
-            write_part(out, blocks)
+            self._sealed(write_part(out, blocks))
         except BaseException:
             shutil.rmtree(out + ".tmp", ignore_errors=True)
             raise
@@ -180,8 +188,8 @@ class DataDB:
             return False
         out = self._new_part_path()
         try:
-            write_part(out, merge_block_streams(
-                [p.iter_blocks() for p in to_merge]), big=big)
+            self._sealed(write_part(out, merge_block_streams(
+                [p.iter_blocks() for p in to_merge]), big=big), merge=True)
         except BaseException:
             shutil.rmtree(out + ".tmp", ignore_errors=True)
             raise

@@ -12,7 +12,8 @@ timestamps), so it never asks which kind it walks:
 - `FilePart` reads a part directory lazily.  It is the JAX package's
   `part.Part`.
 
-A part directory holds five files (format v2, the JAX package's):
+A part directory holds five files (format v2, the JAX package's), and
+a sixth since the filter index (storage/filterindex):
 
   metadata.json    rows, blocks, time range, sizes, format version
   index.bin        a 4-byte big-endian length, a compressed JSON
@@ -23,6 +24,9 @@ A part directory holds five files (format v2, the JAX package's):
                    timestamps
   columns.bin      per (block, column), the compressed payload
   blooms.bin       the raw uint64 bloom words, memory-mapped when read
+  filterindex.bin  split-block filters, xor aggregates and token -> block
+                   maplets of the bloom columns, built at the seal
+                   (absent with VL_FILTER_INDEX=v1)
 
 Opening a part parses only the metaindex; a header group decodes the
 first time a block of it is touched.  Bloom words stay uncompressed:
@@ -37,12 +41,14 @@ import json
 import os
 import shutil
 import struct
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..utils import zstd as _zstd
-from .block import BlockData
+from . import filterindex as _fidx
+from .block import BlockData, column_token_hashes
 from .log_rows import StreamID, TenantID
 from .values_encoder import (EncodedColumn, VT_DICT, VT_FLOAT64, VT_INT64,
                              VT_IPV4, VT_STRING, VT_TIMESTAMP_ISO8601,
@@ -165,14 +171,23 @@ def fsync_dir(path: str) -> None:
 
 def write_part(path: str, blocks, big: bool = False) -> dict:
     """Write blocks (sorted by (stream_id, min_ts); any iterable, read
-    once) as the part directory `path`; returns its metadata.
+    once) as the part directory `path`; returns its metadata, with the
+    filter index's build figures under "filter_index" when one was built
+    (not with VL_FILTER_INDEX=v1, nor for a part of no blocks).
 
     Every file is written under `path + ".tmp"` and fsynced, the
     directory renamed to `path`, then its parent fsynced: the rename is
     the commit point, and a crash before it leaves only a `.tmp`
     directory, which the datadb removes when it opens (and a later
     write of the same part replaces).  `big` compresses
-    the payloads harder (a merge into the big tier)."""
+    the payloads harder (a merge into the big tier).
+
+    This is the seal: the part never changes again, so its filter index
+    (storage/filterindex) is built here from each bloom column's token
+    hashes and written into the same `.tmp` directory, published by the
+    same rename.  A fresh block carries its hashes from the block
+    build; a block read back from disk (a merge passing it through)
+    tokenizes its values again.  A failed build raises."""
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -180,6 +195,8 @@ def write_part(path: str, blocks, big: bool = False) -> dict:
     total_rows = 0
     min_ts = max_ts = None
     uncomp_size = 0
+    fi_builder = _fidx.SidecarBuilder() if _fidx.enabled() else None
+    hash_s = 0.0          # tokenizing pass-through blocks again
     with open(os.path.join(tmp, TIMESTAMPS_FILENAME), "wb") as ts_f, \
          open(os.path.join(tmp, COLUMNS_FILENAME), "wb") as col_f, \
          open(os.path.join(tmp, BLOOMS_FILENAME), "wb") as bloom_f:
@@ -210,6 +227,14 @@ def write_part(path: str, blocks, big: bool = False) -> dict:
                     bloom_f.write(c.bloom.tobytes())
                     ch["b"] = [bloom_off, int(c.bloom.shape[0])]
                     bloom_off += c.bloom.shape[0] * 8
+                    if fi_builder is not None:
+                        h = c.token_hashes
+                        if h is None:
+                            t_h = time.perf_counter()
+                            h = column_token_hashes(c, b.num_rows)
+                            hash_s += time.perf_counter() - t_h
+                        if h is not None:
+                            fi_builder.add(len(headers), c.name, h)
                 if c.vtype == VT_DICT:
                     ch["dict"] = c.dict_values
                 elif c.vtype != VT_STRING:
@@ -234,6 +259,14 @@ def write_part(path: str, blocks, big: bool = False) -> dict:
         for fh in (ts_f, col_f, bloom_f):
             fh.flush()
             os.fsync(fh.fileno())
+    fi_stats = None
+    if fi_builder is not None and headers:
+        t0 = time.perf_counter()
+        fi_cols, fi_stats = _fidx.build_sidecar(fi_builder, len(headers))
+        fi_stats["file_bytes"] = _fidx.write_sidecar(tmp, fi_cols,
+                                                     len(headers))
+        fi_stats["build_s"] = time.perf_counter() - t0
+        fi_stats["hash_recompute_s"] = hash_s
     groups_meta = []
     group_blobs = []
     goff = 0
@@ -274,7 +307,7 @@ def write_part(path: str, blocks, big: bool = False) -> dict:
         shutil.rmtree(path)
     os.rename(tmp, path)
     fsync_dir(os.path.dirname(path))
-    return meta
+    return meta if fi_stats is None else dict(meta, filter_index=fi_stats)
 
 
 # ---------------- the lazy reader ----------------

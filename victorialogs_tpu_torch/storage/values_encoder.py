@@ -76,6 +76,9 @@ class EncodedColumn:
     max_val: float = 0.0
     iso_frac_w: int = 0                            # VT_TIMESTAMP fractional digits
     bloom: np.ndarray | None = None                # uint64 words (set later)
+    # the distinct token hashes the bloom was built from (a fresh block;
+    # None once read back from disk): the filter index's input at a seal
+    token_hashes: np.ndarray | None = None
     _strings_cache: list[str] | None = field(default=None, repr=False)
 
     def to_strings(self, nrows: int) -> list[str]:
